@@ -13,8 +13,14 @@ device decides:
 ``backend="torch"`` forces the plain version on any device.  It is an
 explicit reference mode for tests and for the comparison phase of
 ``chip_smoke.py``; no default or command-line path sets it.
+
+Host numpy operands carry no device of their own: the caller names one
+(:func:`resolve_device`), the counterpart of ``resolve_backend``'s
+accelerator choice in the reference.
 """
 from __future__ import annotations
+
+import threading
 
 import torch
 
@@ -49,6 +55,43 @@ def check_operands(what: str, *tensors: torch.Tensor) -> None:
                              f"is not contiguous")
         if t.data_ptr() % 16:
             raise ValueError(f"{what}: operand not 16-byte aligned")
+
+
+class LaunchCounter:
+    """Launches of one kernel by this process.  The runtime's executor
+    threads call the wrappers concurrently, so the count is taken under a
+    lock (``n += 1`` alone is a read-modify-write that loses counts)."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._n = 0
+
+    def add(self) -> None:
+        with self._lock:
+            self._n += 1
+
+    def reset(self) -> None:
+        with self._lock:
+            self._n = 0
+
+    @property
+    def value(self) -> int:
+        with self._lock:
+            return self._n
+
+
+def resolve_device(device) -> torch.device:
+    """The device a runtime or state tier was asked for: ``cuda`` (which
+    must exist) or ``cpu``; anything else raises."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the port runs on the card; pass device='cpu' "
+            "(--device cpu) to run the plain PyTorch path on the CPU")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"device {device!r}: use cuda or cpu "
+                         f"(--device cuda|cpu)")
+    return dev
 
 
 def dispatch(backend: str | None, x: torch.Tensor) -> str:

@@ -16,11 +16,11 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.common import (DTYPE_CODES, HEAD_DIMS,
-                                        check_operands, cdiv, dispatch,
-                                        round_up)
+                                        LaunchCounter, check_operands, cdiv,
+                                        dispatch, round_up)
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 
-LAUNCHES = 0      # wrapper calls that launched the kernels (chip_smoke reads it)
+LAUNCHES = LaunchCounter()  # wrapper calls that launched the kernels
 
 CHUNK = 32        # keys per chunk in the kernel; a split is a multiple of it
 BLOCKS_PER_SM = 4  # split the cache until the grid has this many blocks per SM
@@ -54,7 +54,6 @@ def split_plan(B: int, K: int, S: int, n_sm: int) -> tuple:
 
 
 def _decode_cuda(q, k, v, lengths, scale):
-    global LAUNCHES
     B, H, D = q.shape
     if k.ndim != 4 or v.shape != k.shape or k.shape[0] != B or k.shape[3] != D:
         raise ValueError(f"decode_attention: q {tuple(q.shape)}, "
@@ -88,5 +87,5 @@ def _decode_cuda(q, k, v, lengths, scale):
             B, S, H, K, D, DTYPE_CODES[q.dtype], split_len, n_splits, scale,
             stream)
     _build.check("decode_attention", rc)
-    LAUNCHES += 1
+    LAUNCHES.add()
     return out

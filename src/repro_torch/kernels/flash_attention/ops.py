@@ -15,10 +15,11 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.common import (DTYPE_CODES, HEAD_DIMS,
-                                        check_operands, dispatch)
+                                        LaunchCounter, check_operands,
+                                        dispatch)
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
-LAUNCHES = 0      # kernel launches by this process (chip_smoke reads it)
+LAUNCHES = LaunchCounter()      # kernel launches (chip_smoke reads it)
 
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
              + [ctypes.c_float, ctypes.c_void_p])
@@ -37,7 +38,6 @@ def flash_attention(q, k, v, *, causal: bool = True, scale: float | None = None,
 
 
 def _flash_cuda(q, k, v, causal, scale, q_offset):
-    global LAUNCHES
     B, Sq, H, D = q.shape
     if k.ndim != 4 or v.shape != k.shape or k.shape[0] != B or k.shape[3] != D:
         raise ValueError(f"flash_attention: q {tuple(q.shape)}, "
@@ -61,5 +61,5 @@ def _flash_cuda(q, k, v, causal, scale, q_offset):
             B, Sq, Sk, H, K, D, DTYPE_CODES[q.dtype], int(causal), q_offset,
             scale, stream)
     _build.check("flash_attention", rc)
-    LAUNCHES += 1
+    LAUNCHES.add()
     return out

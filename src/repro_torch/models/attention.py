@@ -74,22 +74,7 @@ def attn_apply_full(p: Attention, cfg: ModelConfig, ec: ExecConfig, x, *,
     if positions is None and cfg.use_rope:
         positions = torch.arange(S, device=x.device)
     q, k, v = _project_qkv(p, cfg, x, positions)
-    if causal and ec.attn_buckets > 1 and S % ec.attn_buckets == 0:
-        # causal q-bucketing: queries in bucket i only ever see keys in
-        # [0, (i+1)·S/nb) — skip the strictly-upper KV blocks entirely.
-        # Work factor (nb+1)/(2·nb) of full-rectangle attention.
-        nb = ec.attn_buckets
-        bs = S // nb
-        parts = []
-        for i in range(nb):
-            parts.append(flash_attention(
-                q[:, i * bs:(i + 1) * bs].contiguous(),
-                k[:, :(i + 1) * bs].contiguous(),
-                v[:, :(i + 1) * bs].contiguous(), causal=True,
-                q_offset=i * bs, backend=ec.backend))
-        y = torch.cat(parts, dim=1)
-    else:
-        y = flash_attention(q, k, v, causal=causal, backend=ec.backend)
+    y = flash_attention(q, k, v, causal=causal, backend=ec.backend)
     return _out_proj(p, y, B, S, cfg)
 
 

@@ -10,7 +10,9 @@ import jax  # noqa: F401  (both frameworks load in the test process)
 import pytest
 import torch
 
+from repro_torch.core import FaasmRuntime
 from repro_torch.launch import serve
+from repro_torch.state.kv import GlobalTier
 
 REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + \
@@ -36,6 +38,9 @@ def test_port_file_imports_no_jax_or_repro(path):
 
 def test_importing_the_launcher_loads_no_jax_or_repro():
     code = ("import sys, repro_torch.launch.serve, repro_torch.models.weights\n"
+            "import repro_torch.core, repro_torch.state\n"
+            "import repro_torch.kernels.state_push\n"
+            "import repro_torch.analysis.sanitizer, repro_torch.telemetry\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "assert not bad, bad\n")
@@ -51,6 +56,25 @@ def test_serve_raises_without_a_card(monkeypatch):
         serve.main(["--smoke"])                  # --device cuda by default
     with pytest.raises(ValueError, match="--device"):
         serve.main(["--smoke", "--device", "meta"])
+
+
+def test_runtime_raises_without_a_card(monkeypatch):
+    """The runtime and its state plane run on the card by default; the CPU
+    only when asked for."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        FaasmRuntime()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        GlobalTier()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.run_faasm_fanout(None, None, 8, 1)     # device="cuda" default
+    rt = FaasmRuntime(n_hosts=1, device="cpu")
+    try:
+        assert rt.device.type == "cpu" and rt.global_tier.device == rt.device
+        assert all(h.local_tier.device == rt.device
+                   for h in rt.hosts.values())
+    finally:
+        rt.shutdown()
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):

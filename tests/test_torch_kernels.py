@@ -156,22 +156,22 @@ def test_flash_wrapper_refuses_before_launch(case):
     """The CUDA path checks its operands before anything is built or
     launched (called here directly on CPU tensors)."""
     message, args = _bad_flash_args()[case]
-    n = flash_ops.LAUNCHES
+    n = flash_ops.LAUNCHES.value
     with pytest.raises(ValueError, match=message):
         flash_ops._flash_cuda(*args, True, 0.125, 0)
-    assert flash_ops.LAUNCHES == n
+    assert flash_ops.LAUNCHES.value == n
 
 
 def test_decode_wrapper_refuses_before_launch():
     q, kv = torch.zeros(2, 4, 64), torch.zeros(2, 16, 2, 64)
-    n = decode_ops.LAUNCHES
+    n = decode_ops.LAUNCHES.value
     with pytest.raises(ValueError, match="lengths"):
         decode_ops._decode_cuda(q, kv, kv, torch.ones(2, dtype=torch.int64),
                                 0.125)
     with pytest.raises(ValueError, match="contiguous"):
         decode_ops._decode_cuda(q, kv[:, ::2], kv[:, ::2],
                                 torch.ones(2, dtype=torch.int32), 0.125)
-    assert decode_ops.LAUNCHES == n
+    assert decode_ops.LAUNCHES.value == n
 
 
 @pytest.mark.parametrize("B,K,S", [(4, 16, 544), (1, 1, 32768), (128, 8, 100),

@@ -141,22 +141,6 @@ def test_bf16_checkpoint_matches_jax():
         np.testing.assert_allclose(t, j, atol=tol, rtol=tol)
 
 
-def test_bucketed_logits_match_jax():
-    """Causal q-bucketing (``attn_buckets``) drives flash attention with a
-    query offset inside the model."""
-    jcfg, tcfg = _cfgs("float32")
-    jparams = jax_build_model(jcfg).init(jax.random.PRNGKey(3))
-    params = from_jax_params(jax.tree.map(np.asarray, jparams), tcfg, "cpu")
-    tokens = _tokens(tcfg, seed=2)
-    want = jax_build_model(jcfg, JaxExecConfig(backend="xla", attn_buckets=4)
-                           ).logits(jparams, jnp.asarray(tokens))
-    with torch.no_grad():
-        got = build_model(tcfg, ExecConfig(attn_buckets=4)).logits(
-            params, torch.from_numpy(tokens))
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4,
-                               rtol=1e-4)
-
-
 def test_from_jax_params_refuses_a_mismatched_tree():
     jcfg, tcfg = _cfgs("float32")
     tree = jax.tree.map(np.asarray,
