@@ -11,7 +11,11 @@ Phases, each fatal on failure:
    at several shapes, in bf16 and f32 (f32 references with TF32 off); the
    state-push kernels K1-K4 at the serve/stats size and a ragged one, K1
    also against the numpy host codec bitwise, K4 against its plain
-   version's e4m3 cast bitwise;
+   version's e4m3 cast bitwise; K7 (grouped matmul) at the decode, down
+   projection and prefill shapes of deepseek-moe-16b, with all rows in one
+   expert, with rows past the last group (which must come out zero) and
+   with fewer rows than one tile, in bf16 (3e-2) and f32 (1e-4, the
+   reference's gmm tolerance);
 3. serve: run the launcher's main path, ``repro_torch.launch.serve.main``,
    on qwen1.5-0.5b at full width in bf16 with random weights from a seed
    (batch 4, prompt 512, 32 new tokens), with every launch counter set to
@@ -37,15 +41,40 @@ Phases, each fatal on failure:
    port never calls) and the card's bound for the work; the state-push
    kernels also at 16 Mi elements, and one host-side encode of numpy
    operands beside the host codec; then the warm prefill and decode loop,
-   and one profiled run for the device's busy share.
+   and one profiled run for the device's busy share;
+8. moe serve: the launcher's main path on deepseek-moe-16b at full width
+   (16.4 B parameters, bf16, random weights from the seed; batch 4,
+   prompt 512, 32 new tokens), counters zeroed just before: the prefill
+   takes the GShard einsum dispatch, every decode step the sorted path
+   through K7 (3 calls in each of the 27 MoE layers), so K5 launches 28
+   times, K6 28 x 31 and K7 27 x 3 x 31; every router call's expert sets
+   are recorded;
+9. moe reference: the same prompt and generated tokens through the plain
+   path, three ways.  bf16 rounds apart on the two paths, so a near-tie
+   between the 6th and 7th expert can pick another expert; the token's
+   later layers and, through attention, later tokens then drift apart.
+   Free-running (the plain router picks its own experts): the share of
+   (token, layer) sets routed apart and the argmax agreement are printed.
+   Routing forced to the kernel path's experts: the argmax must agree on
+   90% of all rows; the logits are printed.  Sublayer by sublayer (every
+   attention and FFN call of a kernel-path run repeated on the plain path
+   on the same input): every output within the bf16 kernel tolerance;
+10. moe timing: K7 at the decode shape (24 rows, one layer's real gate
+   weights) and at the sorted-prefill shape (12,288 rows, all 64 experts)
+   as in phase 7; then the warm MoE prefill and decode, and one profiled
+   decode loop for the device's busy share.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``.  Without a CUDA card, or run
 outside the repository, it exits non-zero and prints no result.
 ``python3 chip_smoke.py parity`` stops after phase 2 and prints no result.
+The qwen phases run first; their model is freed before the 32.8 GB MoE
+model is drawn on the card.
 """
 from __future__ import annotations
 
+import contextlib
+import gc
 import json
 import re
 import subprocess
@@ -57,7 +86,9 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 ARCH, BATCH, PROMPT, NEW_TOKENS, SEED = "qwen1.5-0.5b", 4, 512, 32, 0
+MOE_ARCH = "deepseek-moe-16b"
 TOL = {"float32": 2e-5, "bfloat16": 3e-2}   # the repo's kernel tolerances
+GMM_TOL = {"float32": 1e-4, "bfloat16": 3e-2}   # the reference's gmm, bf16
 LOGIT_TOL = 5e-2                            # bf16 model tolerance (atol = rtol)
 MIN_ARGMAX_AGREEMENT = 0.9                  # bf16 near-ties may flip a few
 FANOUT_REQUESTS, FANOUT_WARM = 64, 8       # the wave; the launcher's warm-up
@@ -78,10 +109,12 @@ FLASH_CASES = [
     (2, 33, 50, 4, 4, 32, True, 17),
     (2, 16, 40, 4, 2, 16, False, 0),
     (1, 16, 16, 16, 16, 64, True, 0),        # the fan-out's forward
+    (4, 512, 512, 16, 16, 128, True, 0),     # deepseek-moe-16b's prefill
 ]
 DECODE_CASES = [
     # B, S, H, K, D, lengths
     (4, 544, 16, 16, 64, (513, 530, 543, 544)),  # the serving decode
+    (4, 544, 16, 16, 128, (513, 530, 543, 544)),  # deepseek-moe-16b's
     (3, 300, 16, 4, 128, (1, 150, 300)),         # GQA G=4, D 128
     (2, 1000, 8, 1, 64, (999, 37)),              # MQA, long cache
     (2, 64, 4, 2, 16, (1, 64)),
@@ -124,23 +157,29 @@ def device_events(prof):
     return [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
 
 
-def device_ms(fn, iters: int = 20, warmup: int = 5) -> float:
+def device_ms(fn, iters: int = 20, warmup: int = 5,
+              attempts: int = 3) -> float:
     """Device time per call: every kernel ``fn`` launches, summed from
     torch.profiler's CUDA trace — the work's own time, whatever the host's
-    launch overhead between calls."""
+    launch overhead between calls.  A trace that comes back with no device
+    event at all (seen once on the card, for 20 calls of a 2 us kernel,
+    where the same phase had traced before) is taken again, up to
+    ``attempts`` times."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(e.self_device_time_total for e in device_events(prof))
-    if total_us <= 0:
-        raise RuntimeError("the profiler saw no device time")
-    return total_us / iters / 1e3
+    for attempt in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total_us = sum(e.self_device_time_total for e in device_events(prof))
+        if total_us > 0:
+            return total_us / iters / 1e3
+        log(f"  (trace {attempt + 1} of {attempts} saw no device time)")
+    raise RuntimeError("the profiler saw no device time")
 
 
 def check_close(name: str, got, want, tol: float) -> float:
@@ -226,13 +265,80 @@ def phase_parity() -> dict:
     return errs
 
 
+def _gmm_sizes(g, kind: str, T: int, E: int = 64):
+    """Group sizes on the card: ``draws`` as one decode step's top-6 picks
+    (T draws of 64 experts), ``skewed`` over 48 of the 64 experts (the
+    others empty), ``one`` all rows in expert 17, ``tail`` three quarters
+    of the rows in groups, ``tiny`` 2 + 3 rows."""
+    import torch
+    if kind == "draws":
+        e = torch.randint(0, E, (T,), generator=g, device="cuda")
+    elif kind == "skewed":
+        active = torch.randperm(E, generator=g, device="cuda")[:48]
+        e = active[torch.randint(0, 48, (T,), generator=g, device="cuda")]
+    elif kind == "one":
+        e = torch.full((T,), 17, device="cuda")
+    elif kind == "tail":
+        e = torch.randint(0, E, (3 * T // 4,), generator=g, device="cuda")
+    else:
+        e = torch.tensor([3, 3, 40, 40, 40], device="cuda")
+    return torch.bincount(e, minlength=E).to(torch.int32)
+
+
+GMM_CASES = [
+    # name, T, d, f, group sizes
+    ("decode gate/up", 24, 2048, 1408, "draws"),
+    ("decode down", 24, 1408, 2048, "draws"),
+    ("prefill", 12_288, 2048, 1408, "skewed"),
+    ("one expert", 300, 2048, 1408, "one"),
+    ("rows past the groups", 200, 512, 1408, "tail"),
+    ("fewer rows than a tile", 5, 2048, 1408, "tiny"),
+]
+
+
+def phase_parity_gmm() -> dict:
+    """K7 against its plain version at deepseek-moe-16b's shapes; weights
+    at the model's scale (fan-in^-0.5), so the f32 sums stay near 1."""
+    import torch
+    from repro_torch.kernels.moe_gmm import gmm, gmm_ref
+    g = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    errs = {}
+    log("parity: K7 moe_gmm against its plain version")
+    for dtype in (torch.bfloat16, torch.float32):
+        tol = GMM_TOL[str(dtype).split(".")[1]]
+        for name, T, d, f, kind in GMM_CASES:
+            gs = _gmm_sizes(g, kind, T)
+            x = torch.randn(T, d, generator=g, device="cuda").to(dtype)
+            w = (torch.randn(64, d, f, generator=g, device="cuda")
+                 * d ** -0.5).to(dtype)
+            # leave NaNs where the output will be allocated: rows the
+            # kernel does not write would show
+            junk = torch.full((T, f), float("nan"), dtype=dtype, device="cuda")
+            del junk
+            got = gmm(x, w, gs)
+            torch.cuda.synchronize()
+            want = gmm_ref(x, w, gs)
+            torch.cuda.synchronize()
+            err = check_close(f"K7 {dtype} {name}: T{T} d{d} f{f}, "
+                              f"{int((gs > 0).sum())} experts, "
+                              f"{int(gs.sum())} rows in groups",
+                              got, want, tol)
+            if dtype == torch.bfloat16 and name == "decode gate/up":
+                errs["moe_gmm"] = err
+            if dtype == torch.bfloat16 and name == "prefill":
+                errs["moe_gmm[prefill]"] = err
+    return errs
+
+
 def launch_counters() -> dict:
     """Every kernel's launch counter, by the name its timing row carries."""
     from repro_torch.kernels.decode_attention import ops as decode_ops
     from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.moe_gmm import ops as gmm_ops
     from repro_torch.kernels.state_push import ops as sp_ops
     return {"flash_attention": flash_ops.LAUNCHES,
             "decode_attention": decode_ops.LAUNCHES,
+            "moe_gmm": gmm_ops.LAUNCHES,
             **{f"state_push.{k}": c for k, c in sp_ops.LAUNCHES.items()}}
 
 
@@ -692,16 +798,335 @@ def _row(name, source, replaces, launches, errs, ms, plain_ms, library_ms,
             "library_ms": library_ms}
 
 
-def _serve_once(model, params, tokens) -> tuple:
-    """Prefill + greedy decode of the kernel path: (prefill s, decode s)."""
+class RoutingRecorder:
+    """Wraps ``repro_torch.models.moe.router_topk`` (looked up by
+    ``moe_apply`` at each call) to keep every call's top-k expert ids, in
+    slot order, in call order.  With ``force`` (another run's recorded
+    ids), each call routes to the forced ids instead, with gates taken
+    from its own router probabilities at those ids and renormalised as
+    ``router_topk`` does; its own choice is still recorded."""
+
+    def __init__(self, force=None):
+        self.calls, self.force = [], force
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import moe
+        self._orig = moe.router_topk
+
+        def wrapped(p, cfg, x2d):
+            gates, idx, aux = self._orig(p, cfg, x2d)
+            self.calls.append(idx)
+            if self.force is None:
+                return gates, idx, aux
+            idx = self.force[len(self.calls) - 1]
+            probs = torch.softmax(x2d.float() @ p.router, dim=-1)
+            gates = probs.gather(1, idx.long())
+            gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
+            return gates, idx, aux
+
+        moe.router_topk = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe.router_topk = self._orig
+
+
+def phase_moe_serve() -> tuple:
     import torch
-    with torch.no_grad():
+    from repro_torch.launch import serve
+    log(f"moe serve: {MOE_ARCH} full width, bf16, batch {BATCH}, prompt "
+        f"{PROMPT}, {NEW_TOKENS} new tokens")
+    reset_launches()
+    with RoutingRecorder() as rec:
+        res = serve.main(["--arch", MOE_ARCH, "--batch", str(BATCH),
+                          "--prompt-len", str(PROMPT), "--new-tokens",
+                          str(NEW_TOKENS), "--device", "cuda", "--seed",
+                          str(SEED)], keep_logits=True)
+    launches = read_launches()
+    cfg = res["cfg"]
+    n_moe = cfg.n_layers - cfg.first_k_dense
+    want = {k: 0 for k in launches}
+    want.update({"flash_attention": cfg.n_layers,
+                 "decode_attention": cfg.n_layers * (NEW_TOKENS - 1),
+                 "moe_gmm": 3 * n_moe * (NEW_TOKENS - 1)})
+    log(f"  launches {launches} (expected {want})")
+    if launches != want:
+        raise AssertionError(f"launches {launches}, expected {want}")
+    gen, logits = res["gen"], res["logits"]
+    if tuple(gen.shape) != (BATCH, NEW_TOKENS) or len(logits) != NEW_TOKENS:
+        raise AssertionError(f"generated {tuple(gen.shape)}, "
+                             f"{len(logits)} logits")
+    for i, lg in enumerate(logits):
+        if tuple(lg.shape) != (BATCH, cfg.vocab_size) or \
+                not bool(torch.isfinite(lg).all()):
+            raise AssertionError(f"step {i}: bad logits {tuple(lg.shape)}")
+    if not bool(((gen >= 0) & (gen < cfg.vocab_size)).all()):
+        raise AssertionError("generated ids out of the vocabulary")
+    params = res["params"]
+    n_params = sum(p.numel() for p in params.parameters())
+    if abs(n_params / 16.4e9 - 1) > 0.03 or \
+            params.layers[0].moe.w_gate.dtype != torch.bfloat16:
+        raise AssertionError(f"{n_params} parameters, expected 16.4 B bf16")
+    log(f"  {n_params / 1e9:.3f}B parameters "
+        f"({torch.cuda.memory_allocated() / 1e9:.1f} GB on the card); "
+        f"prefill {res['prefill_s'] * 1e3:.2f}ms, decode "
+        f"{res['decode_s'] * 1e3:.2f}ms (first run, routing recorded: "
+        f"{BATCH * (NEW_TOKENS - 1) / res['decode_s']:.1f} tok/s)")
+    return res, launches, rec.calls
+
+
+def _moe_run(res, model, force=None) -> tuple:
+    """``model``'s prefill and decode on the main-path run's prompt and
+    generated tokens (teacher forcing): (logits per step, router calls)."""
+    import torch
+    params, tokens, gen = res["params"], res["tokens"], res["gen"]
+    cache = model.init_cache(BATCH, PROMPT + NEW_TOKENS, "cuda")
+    with torch.no_grad(), RoutingRecorder(force) as rec:
+        lg, cache, n = model.prefill(params, tokens, cache)
+        out = [lg]
+        for i in range(NEW_TOKENS - 1):
+            idx = torch.full((BATCH,), n + i, dtype=torch.int32, device="cuda")
+            lg, cache = model.decode_step(params, gen[:, i], cache, idx)
+            out.append(lg)
+    torch.cuda.synchronize()
+    return out, rec.calls
+
+
+def _sublayer_run(res) -> dict:
+    """The kernel path once more on the main-path run's prompt and tokens,
+    with every attention and FFN sublayer call repeated on the plain path
+    on the same input (and a copy of the cache it reads): both see the
+    same activations, so the router picks the same experts and only the
+    kernels' rounding separates them.  Returns {sublayer: (calls, max
+    |diff|, largest excess over TOL["bfloat16"] abs + rel)} and the
+    run's logits per step."""
+    from repro_torch.models import transformer as tr
+    tol, stats = TOL["bfloat16"], {}
+    orig = {n: getattr(tr, n)
+            for n in ("attn_apply_prefill", "attn_apply_decode", "_ffn")}
+
+    def hold(kind, got, want):
+        d = (got.float() - want.float()).abs()
+        n, err, exc = stats.get(kind, (0, 0.0, -1.0))
+        stats[kind] = (n + 1, max(err, float(d.max())), max(exc, float(
+            (d - tol * (1 + want.float().abs())).max())))
+
+    def attn(name):
+        def wrapped(p, cfg, ec, x, ck, cv, *args, **kw):
+            ck0, cv0 = ck.clone(), cv.clone()
+            out = orig[name](p, cfg, ec, x, ck, cv, *args, **kw)
+            plain = orig[name](p, cfg, ec.with_overrides(backend="torch"), x,
+                               ck0, cv0, *args, **kw)
+            hold(name, out[0], plain[0])
+            return out
+        return wrapped
+
+    def ffn(lp, cfg, ec, h):
+        out = orig["_ffn"](lp, cfg, ec, h)
+        kind = ("moe" if isinstance(lp, tr.MoEBlock) else "dense mlp") + \
+            (" decode" if h.shape[1] == 1 else " prefill")
+        hold(kind, out[0],
+             orig["_ffn"](lp, cfg, ec.with_overrides(backend="torch"), h)[0])
+        return out
+
+    tr.attn_apply_prefill = attn("attn_apply_prefill")
+    tr.attn_apply_decode = attn("attn_apply_decode")
+    tr._ffn = ffn
+    try:
+        logits, _ = _moe_run(res, res["model"])
+    finally:
+        for n, fn in orig.items():
+            setattr(tr, n, fn)
+    return stats, logits
+
+
+def _flips(a_calls, b_calls, n_moe: int):
+    """Per router call, which tokens got another top-k set; and the share
+    of (token, layer) sets that differ in each MoE layer of the prefill."""
+    import torch
+    if len(a_calls) != len(b_calls) or len(a_calls) != n_moe * NEW_TOKENS:
+        raise AssertionError(f"{len(a_calls)} and {len(b_calls)} router "
+                             f"calls, expected {n_moe * NEW_TOKENS}")
+    flips = [(a.sort(-1).values != b.sort(-1).values).any(-1)
+             for a, b in zip(a_calls, b_calls)]
+    share = sum(int(f.sum()) for f in flips) / sum(f.numel() for f in flips)
+    per_layer = [float(f.float().mean()) for f in flips[:n_moe]]
+    return flips, share, per_layer
+
+
+def _any_flip(flips, shape):
+    """Any flip over the layers of one step's router calls, as a (BATCH,
+    ...) mask."""
+    import torch
+    return torch.stack(flips).reshape(shape).any(0)
+
+
+def _held(got_steps, want_steps, gen, rows=None) -> tuple:
+    """(max |dlogit| over the held rows, excess over LOGIT_TOL, argmax
+    agreement over all rows); ``rows[i]`` picks the held rows of step i."""
+    worst, excess, agree = 0.0, -1.0, 0
+    for i, (got, want) in enumerate(zip(got_steps, want_steps)):
+        ok = slice(None) if rows is None else rows[i]
+        d = (got[ok] - want[ok]).abs()
+        if d.numel():
+            worst = max(worst, float(d.max()))
+            excess = max(excess, float(
+                (d - LOGIT_TOL * (1 + want[ok].abs())).max()))
+        agree += int((want.argmax(-1) == gen[:, i].long()).sum())
+    return worst, excess, agree / (BATCH * NEW_TOKENS)
+
+
+def phase_moe_reference(res, kernel_routes) -> None:
+    """The kernel path against the plain path, three ways.
+
+    * Free-running (teacher-forced tokens): the plain router picks its own
+      experts.  A near-tie that rounds the other way sends a token to
+      another expert, which moves its hidden state by a gate times an
+      expert difference; its later layers then route apart too, and
+      attention carries the change to every later token.  Reported, not
+      held (one bf16 ulp decides it): the share of (token, layer) sets
+      routed apart, by layer, the logits of the rows whose own token was
+      routed alike in every layer, and the argmax agreement.
+    * Routing forced to the kernel path's expert ids (its own gates at
+      those ids): no routing flip, but the kernels' rounding still grows
+      through 28 layers.  Held: the argmax on MIN_ARGMAX_AGREEMENT of all
+      rows; reported: the logits.
+    * Sublayer by sublayer: every attention and FFN call of a kernel-path
+      run repeated on the plain path on the same input.  Held: every
+      output within TOL["bfloat16"] (the kernels' own bf16 tolerance).
+    """
+    import torch
+    from repro_torch.models import ExecConfig, build_model
+    cfg, gen = res["cfg"], res["gen"]
+    n_moe = cfg.n_layers - cfg.first_k_dense
+    total = BATCH * NEW_TOKENS
+    plain = build_model(cfg, ExecConfig(backend="torch"))
+
+    free_logits, free_routes = _moe_run(res, plain)
+    flips, share, per_layer = _flips(kernel_routes, free_routes, n_moe)
+    # the logits row of step 0 is the prefill's last prompt token, of step
+    # i + 1 decode step i's token
+    own = [_any_flip(flips[:n_moe], (n_moe, BATCH, PROMPT))[:, -1]]
+    own += [_any_flip(flips[n_moe * (i + 1):n_moe * (i + 2)], (n_moe, BATCH))
+            for i in range(NEW_TOKENS - 1)]
+    alike = [~f for f in own]
+    n_alike = sum(int(a.sum()) for a in alike)
+    worst, excess, free_agree = _held(res["logits"], free_logits, gen, alike)
+    log(f"moe reference, free-running: routing differs in {share:.5f} of "
+        f"the (token, layer) sets (prefill, by MoE layer: first "
+        f"{per_layer[0]:.4f}, middle {per_layer[n_moe // 2]:.4f}, last "
+        f"{per_layer[-1]:.4f}); {n_alike} of {total} rows' own token routed "
+        f"alike in every layer, their max |dlogit| {worst:.4f} "
+        f"({'within' if excess <= 0 else 'outside'} {LOGIT_TOL} abs + rel); "
+        f"argmax agreement {free_agree:.3f}")
+    del free_logits
+
+    forced_logits, own_routes = _moe_run(res, plain, force=kernel_routes)
+    _, ties, _ = _flips(kernel_routes, own_routes, n_moe)
+    worst, excess, agree = _held(res["logits"], forced_logits, gen)
+    steps = [float((g - w).abs().max())
+             for g, w in zip(res["logits"], forced_logits)]
+    within = sum(int(((g - w).abs() <= LOGIT_TOL * (1 + w.abs())).all(-1).sum())
+                 for g, w in zip(res["logits"], forced_logits))
+    log(f"moe reference, routing forced to the kernel path's experts: the "
+        f"plain router's own top-{cfg.experts_per_token} differs in "
+        f"{ties:.5f} of the sets (near-ties under rounding); max |dlogit| "
+        f"{worst:.4f} (prefill row {steps[0]:.4f}, decode rows up to "
+        f"{max(steps[1:]):.4f}; max |logit| "
+        f"{max(float(w.abs().max()) for w in forced_logits):.3f}); "
+        f"{within} of {total} rows within {LOGIT_TOL} abs + rel; argmax "
+        f"agreement {agree:.3f}")
+    del forced_logits
+
+    stats, rerun = _sublayer_run(res)
+    again = max(float((a - b).abs().max()) for a, b in zip(rerun, res["logits"]))
+    log(f"moe reference, the kernel path run again on the same tokens: max "
+        f"|dlogit| {again:.3e} against the main-path run (0: deterministic); "
+        f"sublayer by sublayer (same input on both paths; tol "
+        f"{TOL['bfloat16']} abs + rel):")
+    for kind, (n, err, exc) in stats.items():
+        log(f"  {kind}: {n} calls, max |diff| {err:.3e} "
+            f"{'ok' if exc <= 0 else 'FAIL'}")
+    bad = [k for k, (_, _, exc) in stats.items() if exc > 0]
+    if bad:
+        raise AssertionError(f"sublayers outside tolerance: {bad}")
+    if agree < MIN_ARGMAX_AGREEMENT:
+        raise AssertionError(f"routing-forced argmax agreement {agree:.3f} "
+                             f"< {MIN_ARGMAX_AGREEMENT}")
+
+
+def _grouped_mm(x, w, gs):
+    """One PyTorch call computing K7's function, where this PyTorch has it:
+    ``torch.nn.functional.grouped_mm`` with the group ends as offsets."""
+    import torch
+    import torch.nn.functional as F
+    if not hasattr(F, "grouped_mm"):
+        return None
+    offs = torch.cumsum(gs, 0, dtype=torch.int32)
+    return lambda: F.grouped_mm(x, w, offs=offs)
+
+
+def phase_timing_gmm(res, launches, errs) -> list:
+    """K7 at the decode shape (one step's 24 rows against layer 0's real
+    gate weights) and at the sorted-prefill shape (12,288 rows over all 64
+    experts): device time (profiler), plain version, library call, bound."""
+    import torch
+    from repro_torch.kernels.moe_gmm import gmm, gmm_ref
+    cfg = res["cfg"]
+    d, f, E = cfg.d_model, cfg.moe_d_ff, cfg.n_experts
+    g = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    w = res["params"].layers[0].moe.w_gate
+    rows = []
+    for tag, T in (("", BATCH * cfg.experts_per_token),
+                   ("[prefill]", BATCH * PROMPT * cfg.experts_per_token)):
+        gs = _gmm_sizes(g, "draws", T, E)     # at 12,288 rows: all experts
+        x = torch.randn(T, d, generator=g, device="cuda").to(torch.bfloat16)
+        active = int((gs > 0).sum())
+        nbytes = 2 * (active * d * f + T * d + T * f)
+        flops = 2 * T * d * f
+        kernel = lambda: gmm(x, w, gs)
+        library = _grouped_mm(x, w, gs)
+        lib_ms = None
+        if library is not None:
+            try:
+                lib_ms = device_ms(library)
+            except (RuntimeError, TypeError, ValueError) as exc:  # yardstick
+                log(f"  grouped_mm refused these operands: {exc}")
+        name = "moe_gmm" + tag
+        rows.append(_row(
+            name, "src/repro_torch/kernels/csrc/moe_gmm.cu",
+            "src/repro/kernels/moe_gmm/kernel.py:37",
+            {name: launches["moe_gmm"] if not tag else 0}, errs,
+            device_ms(kernel), device_ms(lambda: gmm_ref(x, w, gs), iters=5),
+            lib_ms, nbytes, flops))
+        log(f"  {name}: T {T}, {active} experts, back-to-back "
+            f"{call_ms(kernel) * 1e3:.1f}us")
+    log("timing, K7 (device time per call from the profiler):")
+    for r in rows:
+        lib = (f"{r['library_ms'] * 1e3:.1f}us (grouped_mm)"
+               if r["library_ms"] is not None else "none")
+        log(f"  {r['name']}: {r['ms'] * 1e3:.1f}us device, bound "
+            f"{r['bound_ms'] * 1e3:.1f}us ({r['bound_by']}), plain "
+            f"{r['plain_ms'] * 1e3:.1f}us, library {lib}, launches "
+            f"{r['launches']}")
+    return rows
+
+
+def _serve_once(model, params, tokens,
+                decode_ctx=contextlib.nullcontext) -> tuple:
+    """Prefill + greedy decode of the kernel path: (prefill s, decode s);
+    ``decode_ctx`` wraps the decode loop (a profiler)."""
+    import torch
+    with torch.no_grad(), contextlib.ExitStack() as stack:
         cache = model.init_cache(BATCH, PROMPT + NEW_TOKENS, "cuda")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         lg, cache, n = model.prefill(params, tokens, cache)
         tok = lg.argmax(-1).to(torch.int32)
         torch.cuda.synchronize()
+        stack.enter_context(decode_ctx())
         t1 = time.perf_counter()
         for i in range(NEW_TOKENS - 1):
             idx = torch.full((BATCH,), n + i, dtype=torch.int32, device="cuda")
@@ -711,24 +1136,33 @@ def _serve_once(model, params, tokens) -> tuple:
         return t1 - t0, time.perf_counter() - t1
 
 
-def phase_warm_serve(res) -> None:
+def phase_warm_serve(res, decode_only: bool = False) -> None:
     """Warm prefill and decode-loop times of the kernel path on the weights
     and prompt of the main-path run, then one run under torch.profiler for
-    the device's busy share and the ops that hold it."""
-    import torch
+    the device's busy share and the ops that hold it (with
+    ``decode_only``, the profiler covers the decode loop alone)."""
     from torch.profiler import ProfilerActivity, profile
     model, params, tokens = res["model"], res["params"], res["tokens"]
+    name = res["cfg"].name
     runs = [_serve_once(model, params, tokens) for _ in range(3)]
-    log(f"warm serve (3 runs): prefill ms {[r[0] * 1e3 for r in runs]}, "
-        f"decode tok/s {[BATCH * (NEW_TOKENS - 1) / r[1] for r in runs]}")
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        wall = sum(_serve_once(model, params, tokens))
+    log(f"warm serve {name} (3 runs): prefill ms "
+        f"{[r[0] * 1e3 for r in runs]}, decode tok/s "
+        f"{[BATCH * (NEW_TOKENS - 1) / r[1] for r in runs]}")
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    if decode_only:
+        wall = _serve_once(model, params, tokens, lambda: prof)[1]
+        warm_wall = min(r[1] for r in runs)
+        what = f"{NEW_TOKENS - 1} decode steps"
+    else:
+        with prof:
+            wall = sum(_serve_once(model, params, tokens))
+        warm_wall = min(sum(r) for r in runs)
+        what = f"one prefill + {NEW_TOKENS - 1} decode steps"
     events = device_events(prof)
     busy_us = sum(e.self_device_time_total for e in events)
     if busy_us <= 0:
         raise RuntimeError("the profiler saw no device time")
-    warm_wall = min(sum(r) for r in runs)
-    log(f"profile (one prefill + {NEW_TOKENS - 1} decode steps): device busy "
+    log(f"profile {name} ({what}): device busy "
         f"{busy_us / 1e3:.1f}ms in {sum(e.count for e in events)} kernels; "
         f"{busy_us / 1e4 / warm_wall:.1f}% of the fastest unprofiled run's "
         f"{warm_wall * 1e3:.1f}ms wall ({wall * 1e3:.1f}ms under the profiler)")
@@ -761,6 +1195,7 @@ def main(argv) -> int:
     phase_build()
     errs = phase_parity()
     errs.update(phase_parity_state_push())
+    errs.update(phase_parity_gmm())
     if parity_only:
         return 0
     res, launches = phase_serve()
@@ -777,6 +1212,14 @@ def main(argv) -> int:
     rows = phase_timing(res, launches, errs)
     rows += phase_timing_state_push(launches, errs)
     phase_warm_serve(res)
+    del res                       # the qwen model leaves the card
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_res, moe_launches, routes = phase_moe_serve()
+    phase_moe_reference(moe_res, routes)
+    del routes
+    rows += phase_timing_gmm(moe_res, moe_launches, errs)
+    phase_warm_serve(moe_res, decode_only=True)
     log(f"chip_smoke: {time.perf_counter() - t0:.1f}s")
     print(smi)
     print(json.dumps({"kernels": rows}))

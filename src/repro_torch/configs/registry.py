@@ -1,8 +1,8 @@
 """Architecture registry: ``--arch <id>`` lookup, smoke-config reduction.
 
 The port's copy of ``repro.configs.registry``.  It holds only the
-architectures the port can build; the others join with the slices that
-port their families (ROADMAP "Modules to port").
+architectures the port can build (the dense and MoE decoders); the others
+join with the slices that port their families (ROADMAP "Modules to port").
 """
 from __future__ import annotations
 
@@ -11,8 +11,9 @@ from typing import Dict, List
 from repro_torch.configs.base import ModelConfig
 
 from repro_torch.configs.qwen15_05b import CONFIG as _QWEN15
+from repro_torch.configs.deepseek_moe_16b import CONFIG as _DSMOE
 
-ARCHS: Dict[str, ModelConfig] = {c.name: c for c in (_QWEN15,)}
+ARCHS: Dict[str, ModelConfig] = {c.name: c for c in (_QWEN15, _DSMOE)}
 
 
 def arch_ids() -> List[str]:

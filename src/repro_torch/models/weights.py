@@ -1,8 +1,9 @@
-"""Parameters of the port's dense decoder: drawn from a seed, or loaded from
+"""Parameters of the port's decoder: drawn from a seed, or loaded from
 the JAX model's parameter tree.
 
 ``from_jax_params`` takes the tree ``repro.models.transformer.init_params``
-builds — nested dicts with the layers stacked on a leading (L, ...) axis —
+builds — nested dicts with the layers stacked on a leading (L, ...) axis,
+and an MoE config's leading dense layers as a list of unstacked dicts —
 as numpy arrays (``np.asarray`` of each JAX leaf), so the two packages can
 run the same weights.  ``init_params`` draws fresh weights with the JAX
 package's distributions from a ``torch.Generator``: ``jax.random`` streams
@@ -20,7 +21,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import dt, trunc_normal
+from repro_torch.models.layers import trunc_normal
 from repro_torch.models.transformer import Transformer
 
 
@@ -34,7 +35,9 @@ def numpy_to_torch(a) -> torch.Tensor:
 
 
 def jax_leaf(tree: Mapping[str, Any], name: str):
-    """``layers.3.attn.wq`` -> tree["layers"]["attn"]["wq"][3]."""
+    """``layers.3.moe.shared.w_up`` -> tree["layers"]["moe"]["shared"]
+    ["w_up"][3] (stacked); ``first_layers.0.attn.wq`` ->
+    tree["first_layers"][0]["attn"]["wq"] (a list of unstacked layers)."""
     parts = name.split(".")
     if parts[0] == "layers":
         node = tree["layers"]
@@ -43,7 +46,7 @@ def jax_leaf(tree: Mapping[str, Any], name: str):
         return np.asarray(node)[int(parts[1])]
     node = tree
     for p in parts:
-        node = node[p]
+        node = node[int(p)] if isinstance(node, (list, tuple)) else node[p]
     return node
 
 
@@ -65,18 +68,20 @@ def from_jax_params(tree: Mapping[str, Any], cfg: ModelConfig,
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device) -> Transformer:
     """Random weights as ``repro.models`` draws them: truncated normals with
-    std 0.02 (embedding), d^-0.5 (QKV, MLP in, untied unembedding),
-    q_dim^-0.5 (output), d_ff^-0.5 (MLP down); zero biases; unit norms."""
+    std 0.02 for the embedding and fan-in^-0.5 for every matrix, the fan-in
+    being the input axis of the module's own ``x @ w`` (``shape[-2]``):
+    d for QKV, MLP and expert inputs, the router and an untied
+    unembedding; q_dim for the attention output; the layer's own hidden
+    width for a down projection (d_ff, the first dense layers' dense_d_ff,
+    the experts' moe_d_ff, the shared experts' moe_d_ff * n_shared).  Each
+    leaf is drawn in f32 and cast to its parameter's dtype (the router
+    stays f32).  Zero biases; unit norms."""
     model = Transformer(cfg, device=device)
-    pdt = dt(cfg.param_dtype)
-    d, f, qd = cfg.d_model, cfg.d_ff, cfg.q_dim
-    std = {"embed": 0.02, "unembed": d ** -0.5, "wq": d ** -0.5,
-           "wk": d ** -0.5, "wv": d ** -0.5, "wo": qd ** -0.5,
-           "w_gate": d ** -0.5, "w_up": d ** -0.5, "w_down": f ** -0.5}
     for name, p in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
-        if leaf in std:
-            p.copy_(trunc_normal(p.shape, std[leaf], pdt, generator=generator,
+        if p.ndim >= 2:
+            std = 0.02 if leaf == "embed" else p.shape[-2] ** -0.5
+            p.copy_(trunc_normal(p.shape, std, p.dtype, generator=generator,
                                  device=device))
         elif leaf in ("scale", "q_norm", "k_norm"):
             p.fill_(1.0)

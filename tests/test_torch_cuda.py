@@ -6,7 +6,9 @@ in bf16); the smoke model's kernel path against its ``backend="torch"``
 path.  The state-push kernels are held tighter: K1's codes, scales and
 residual equal the numpy host codec's bitwise, K4's codes and scales its
 plain version's (``.to(torch.float8_e4m3fn)``) bitwise, at the stats
-vector's size (151,936), at 16 Mi elements and at a ragged size.  This
+vector's size (151,936), at 16 Mi elements and at a ragged size.  K7 (the
+grouped matmul) is held at 1e-4 in f32 (the reference's gmm tolerance)
+and 3e-2 in bf16, at deepseek-moe-16b's shapes.  This
 file imports no JAX: the machine with the card has none.  Run it there
 with ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``.
 """
@@ -20,9 +22,12 @@ from repro_torch.kernels.decode_attention import (decode_attention,
 from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.flash_attention import attention_ref, flash_attention
 from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.moe_gmm import gmm, gmm_ref
+from repro_torch.kernels.moe_gmm import ops as gmm_ops
 from repro_torch.kernels.state_push import hostcodec
 from repro_torch.kernels.state_push import ops as sp_ops
 from repro_torch.models import ExecConfig, build_model
+from repro_torch.models import moe
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 
@@ -134,6 +139,145 @@ def test_smoke_model_kernel_path_matches_plain_path(card, dtype):
             lk, _ = kern.decode_step(params, tok, caches[0], idx)
             lp, _ = plain.decode_step(params, tok, caches[1], idx)
         torch.testing.assert_close(lk, lp, atol=tol, rtol=tol)
+
+
+# -- grouped matmul (K7) ---------------------------------------------------------
+
+GMM_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+GMM_CASES = {
+    # name: (T, d, f, group sizes: expert draws of T rows, or a list)
+    "decode_gate_up": (24, 2048, 1408, "draws"),
+    "decode_down": (24, 1408, 2048, "draws"),
+    "prefill_some_empty": (12_288, 2048, 1408, "skewed"),
+    "one_expert": (300, 2048, 1408, [0] * 17 + [300] + [0] * 46),
+    "rows_past_the_groups": (200, 512, 1408, "tail"),
+    "fewer_rows_than_a_tile": (5, 2048, 1408, [0] * 3 + [2] + [0] * 36 + [3]
+                               + [0] * 23),
+}
+
+
+def _gmm_inputs(card, case, dtype, seed=0):
+    T, d, f, sizes = GMM_CASES[case]
+    rng = np.random.default_rng(seed)
+    if sizes == "draws":
+        sizes = np.bincount(rng.integers(0, 64, T), minlength=64)
+    elif sizes == "skewed":                 # 16 of the 64 experts empty
+        active = rng.permutation(64)[:48]
+        sizes = np.bincount(active[rng.integers(0, 48, T)], minlength=64)
+    elif sizes == "tail":
+        sizes = np.bincount(rng.integers(0, 64, 3 * T // 4), minlength=64)
+    gs = torch.as_tensor(np.asarray(sizes), dtype=torch.int32, device=card)
+    x = _randn(rng, (T, d), dtype, card)
+    w = (_randn(rng, (64, d, f), torch.float32, card) * d ** -0.5).to(dtype)
+    return x, w, gs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", list(GMM_CASES))
+def test_gmm_kernel_on_card(card, case, dtype):
+    x, w, gs = _gmm_inputs(card, case, dtype)
+    junk = torch.full((x.shape[0], w.shape[2]), float("nan"), dtype=dtype,
+                      device=card)
+    del junk                     # unwritten output rows would show as NaN
+    n = gmm_ops.LAUNCHES.value
+    got = gmm(x, w, gs)
+    torch.cuda.synchronize()
+    assert gmm_ops.LAUNCHES.value == n + 1
+    want = gmm_ref(x, w, gs)
+    torch.testing.assert_close(got.float(), want.float(), atol=GMM_TOL[dtype],
+                               rtol=GMM_TOL[dtype])
+    assert got.dtype == dtype
+    assert not got[int(gs.sum()):].any()
+
+
+@pytest.mark.cuda
+def test_gmm_kernel_refuses_bad_cuda_operands(card):
+    x = torch.zeros(24, 64, device=card)
+    w = torch.zeros(4, 64, 32, device=card)
+    gs = torch.zeros(4, dtype=torch.int32, device=card)
+    n = gmm_ops.LAUNCHES.value
+    with pytest.raises(ValueError, match="multiples of 8"):
+        gmm(x, torch.zeros(4, 64, 30, device=card), gs)
+    with pytest.raises(ValueError, match="contiguous"):
+        gmm(torch.zeros(64, 24, device=card).T, w, gs)
+    with pytest.raises(ValueError, match="operands on"):
+        gmm(x, w, gs.cpu())
+    with pytest.raises(ValueError, match="dtypes"):
+        gmm(x.half(), w.half(), gs)
+    assert gmm_ops.LAUNCHES.value == n
+
+
+def _routes(monkeypatch, store):
+    fn = moe.router_topk
+
+    def wrapped(p, cfg, x2d):
+        out = fn(p, cfg, x2d)
+        store.append(out[1].sort(-1).values.cpu())
+        return out
+
+    monkeypatch.setattr(moe, "router_topk", wrapped)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_smoke_model_kernel_path_matches_plain_path(card, dtype,
+                                                        monkeypatch):
+    """The deepseek-moe-16b smoke model through K5, K6 and K7 against its
+    plain path.  In bf16 the two paths round apart, so a near-tie of the
+    router can pick another expert; a row that such a flip can reach (a
+    flip at or before it in its sequence, in any layer) is excused from
+    the tolerance, and the argmax must agree on 90% of all rows."""
+    cfg = smoke_config("deepseek-moe-16b").with_overrides(dtype=dtype,
+                                                          param_dtype=dtype)
+    n_moe = cfg.n_layers - cfg.first_k_dense
+    kern = build_model(cfg, ExecConfig())
+    plain = build_model(cfg, ExecConfig(backend="torch"))
+    params = kern.init(torch.Generator(device=card).manual_seed(0), card)
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 24)), dtype=torch.int32, device=card)
+    tol = 1e-4 if dtype == "float32" else 5e-2
+
+    def run(m, teacher=None):
+        """Full logits, prefill and 4 decode steps (fed ``teacher`` or the
+        run's own argmax), with every router call's expert sets."""
+        routes = []
+        _routes(monkeypatch, routes)
+        out, toks = [m.logits(params, tokens)], []
+        cache = m.init_cache(2, 28, card)
+        lg, _, n = m.prefill(params, tokens, cache)
+        out.append(lg)
+        for i in range(4):
+            tok = lg.argmax(-1).to(torch.int32) if teacher is None \
+                else teacher[i]
+            toks.append(tok)
+            idx = torch.full((2,), n + i, dtype=torch.int32, device=card)
+            lg, _ = m.decode_step(params, tok, cache, idx)
+            out.append(lg)
+        monkeypatch.undo()
+        return out, routes, toks
+
+    with torch.no_grad():
+        pout, proutes, ptoks = run(plain)
+        kout, kroutes, _ = run(kern, teacher=ptoks)
+    assert len(kroutes) == len(proutes) == n_moe * 6
+    flips = [(a != b).any(-1) for a, b in zip(kroutes, proutes)]
+    per_call = [torch.stack(flips[i:i + n_moe]).any(0)
+                for i in range(0, len(flips), n_moe)]
+    reach_fwd = per_call[0].reshape(2, 24).int().cummax(1).values.bool()
+    reach = per_call[1].reshape(2, 24).any(1)
+    masks = [~reach_fwd.to(card), ~reach.to(card)]
+    for step in per_call[2:]:
+        reach = reach | step
+        masks.append(~reach.to(card))
+    if dtype == "float32":
+        assert not any(bool(f.any()) for f in flips)
+    agree = []
+    for k, p, ok in zip(kout, pout, masks):
+        torch.testing.assert_close(k[ok], p[ok], atol=tol, rtol=tol)
+        agree.append((k.argmax(-1) == p.argmax(-1)).float().mean().item())
+    assert np.mean(agree) >= 0.9, agree
 
 
 # -- state push (K1-K4) ----------------------------------------------------------

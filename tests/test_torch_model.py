@@ -23,7 +23,7 @@ from repro.configs import get_config as jax_get_config
 from repro.configs import smoke_config as jax_smoke_config
 from repro.models import ExecConfig as JaxExecConfig
 from repro.models import build_model as jax_build_model
-from repro_torch.configs import get_config, smoke_config
+from repro_torch.configs import ModelConfig, get_config, smoke_config
 from repro_torch.launch import serve
 from repro_torch.models import ExecConfig, build_model
 from repro_torch.models.weights import (from_jax_params, init_params,
@@ -173,8 +173,7 @@ def test_init_params_follows_the_jax_distributions():
 
 
 def test_unported_families_raise():
-    cfg = smoke_config(ARCH).with_overrides(family="moe", n_experts=4,
-                                            experts_per_token=2, moe_d_ff=32)
+    cfg = ModelConfig(**dataclasses.asdict(jax_smoke_config("mamba2-130m")))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(cfg)
 
