@@ -1,8 +1,9 @@
 """Architecture registry: ``--arch <id>`` lookup, smoke-config reduction.
 
 The port's copy of ``repro.configs.registry``.  It holds only the
-architectures the port can build (the dense and MoE decoders); the others
-join with the slices that port their families (ROADMAP "Modules to port").
+architectures the port can build (the dense and MoE decoders, the
+attention-free Mamba2 stack and the Zamba2 hybrid); the others join with
+the slices that port their families (ROADMAP "Modules to port").
 """
 from __future__ import annotations
 
@@ -12,8 +13,11 @@ from repro_torch.configs.base import ModelConfig
 
 from repro_torch.configs.qwen15_05b import CONFIG as _QWEN15
 from repro_torch.configs.deepseek_moe_16b import CONFIG as _DSMOE
+from repro_torch.configs.mamba2_130m import CONFIG as _MAMBA2
+from repro_torch.configs.zamba2_12b import CONFIG as _ZAMBA2
 
-ARCHS: Dict[str, ModelConfig] = {c.name: c for c in (_QWEN15, _DSMOE)}
+ARCHS: Dict[str, ModelConfig] = {c.name: c for c in (_QWEN15, _DSMOE,
+                                                     _MAMBA2, _ZAMBA2)}
 
 
 def arch_ids() -> List[str]:

@@ -1,0 +1,107 @@
+"""The SSD scan: the CUDA kernel on the card, the plain version on the
+CPU; and the decode step.
+
+Counterpart of ``repro.kernels.ssd_scan.ops``.  :func:`ssd` takes the
+reference's signature and chunk rule; a CUDA tensor goes to
+``csrc/ssd_scan.cu`` (K8, the port of ``ssd_pallas``), a CPU tensor, or
+``backend="torch"``, to :func:`ref.ssd_chunked`.  The reference pads S to
+a multiple of the chunk with zero steps around the Pallas call; the CUDA
+kernel masks the ragged last chunk itself (the same zero steps: dt = 0,
+no input), so nothing is copied.  :func:`ssd_step` is plain PyTorch on
+every device, as it is plain jnp in the reference.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.common import (DTYPE_CODES, LaunchCounter,
+                                        check_operands, dispatch)
+from repro_torch.kernels.ssd_scan.ref import ssd_chunked
+
+LAUNCHES = LaunchCounter()  # wrapper calls that launched the kernel
+
+ALIGN = 8            # P and N: whole 16-byte rows in bf16 (the kernel's loads)
+MAX_STATE = 128      # N: the kernel keeps (64, N) f32 tiles in shared memory
+MAX_CHUNK = 256      # Q: the chunk's cumulative sums live in shared memory
+_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+
+
+def ssd(x, dt, A, B, C, D_skip, *, chunk: int = 256, initial_state=None,
+        backend: str | None = None):
+    """Chunked SSD scan (see ref.ssd_ref for shapes).  Returns y (Bt, S, H,
+    P) in x's dtype and the final state (Bt, H, P, N) in f32."""
+    Bt, S, H, P = x.shape
+    N = B.shape[3]
+    chunk = min(chunk, max(16, 1 << (S - 1).bit_length()))   # don't over-chunk tiny S
+    if initial_state is None:
+        initial_state = torch.zeros((Bt, H, P, N), dtype=torch.float32,
+                                    device=x.device)
+    if dispatch(backend, x) == "torch":
+        return ssd_chunked(x, dt, A, B, C, D_skip, initial_state, chunk)
+    return _ssd_cuda(x, dt, A, B, C, D_skip, initial_state, chunk)
+
+
+def _ssd_cuda(x, dt, A, B, C, D_skip, initial_state, chunk: int):
+    if x.ndim != 4 or B.ndim != 4 or B.shape != C.shape:
+        raise ValueError(f"ssd_scan: x {tuple(x.shape)}, B {tuple(B.shape)}, "
+                         f"C {tuple(C.shape)}")
+    Bt, S, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
+    if B.shape[:2] != (Bt, S) or G <= 0 or H % G:
+        raise ValueError(f"ssd_scan: B/C {tuple(B.shape)} do not fit x "
+                         f"{tuple(x.shape)} (H % G must be 0)")
+    if (tuple(dt.shape) != (Bt, S, H) or tuple(A.shape) != (H,)
+            or tuple(D_skip.shape) != (H,)
+            or tuple(initial_state.shape) != (Bt, H, P, N)):
+        raise ValueError(f"ssd_scan: dt {tuple(dt.shape)}, A {tuple(A.shape)}, "
+                         f"D {tuple(D_skip.shape)}, initial_state "
+                         f"{tuple(initial_state.shape)} do not fit x "
+                         f"{tuple(x.shape)} and B {tuple(B.shape)}")
+    if P % ALIGN or N % ALIGN or N > MAX_STATE:
+        raise ValueError(f"ssd_scan: P {P} and N {N} must be multiples of "
+                         f"{ALIGN}, N at most {MAX_STATE}")
+    if not 1 <= chunk <= MAX_CHUNK:
+        raise ValueError(f"ssd_scan: chunk {chunk} not in [1, {MAX_CHUNK}]")
+    if x.dtype not in DTYPE_CODES or B.dtype != x.dtype or C.dtype != x.dtype:
+        raise ValueError(f"ssd_scan: dtypes {x.dtype}, {B.dtype}, {C.dtype}; "
+                         f"x, B and C take one of {tuple(DTYPE_CODES)}")
+    f32 = (dt, A, D_skip, initial_state)
+    if any(t.dtype != torch.float32 for t in f32):
+        raise ValueError(f"ssd_scan: dt, A, D and initial_state must be "
+                         f"float32, got {[t.dtype for t in f32]}")
+    check_operands("ssd_scan", x, dt, A, B, C, D_skip, initial_state)
+    y = torch.empty_like(x)
+    final = torch.empty((Bt, H, P, N), dtype=torch.float32, device=x.device)
+    if x.numel() == 0:
+        final.copy_(initial_state)
+        return y, final
+    fn = _build.function("ssd_scan", "ssd_scan_fwd", _ARGTYPES)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    rc = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+            C.data_ptr(), D_skip.data_ptr(), initial_state.data_ptr(),
+            y.data_ptr(), final.data_ptr(), Bt, S, H, P, G, N, chunk,
+            DTYPE_CODES[x.dtype], stream)
+    _build.check("ssd_scan", rc)
+    LAUNCHES.add()
+    return y, final
+
+
+def ssd_step(state, x_t, dt_t, A, B_t, C_t, D_skip):
+    """Single decode step of the SSD recurrence (plain PyTorch, O(H·P·N)).
+
+    state: (Bt, H, P, N) f32; x_t: (Bt, H, P); dt_t: (Bt, H);
+    B_t/C_t: (Bt, G, N).  Returns (y_t (Bt, H, P) in x_t's dtype,
+    new_state)."""
+    H = state.shape[1]
+    rep = H // B_t.shape[1]
+    xf, dtf = x_t.float(), dt_t.float()
+    Bh = B_t.float().repeat_interleave(rep, dim=1)              # (Bt,H,N)
+    Ch = C_t.float().repeat_interleave(rep, dim=1)
+    decay = torch.exp(dtf * A.float())[..., None, None]
+    new_state = decay * state + (dtf[..., None] * xf)[..., None] * Bh[:, :, None, :]
+    y = torch.einsum("bhpn,bhn->bhp", new_state, Ch)
+    y = y + D_skip.float()[None, :, None] * xf
+    return y.to(x_t.dtype), new_state

@@ -22,8 +22,7 @@ import torch
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.kernels.common import resolve_device
 from repro_torch.models import ExecConfig, build_model
-from repro_torch.models.transformer import Transformer
-from repro_torch.models.weights import numpy_to_torch
+from repro_torch.models.weights import numpy_to_torch, params_class
 from repro_torch.overload import DEADLINE_RC, SHED_RC
 from repro_torch.telemetry import clock as tclock
 from repro_torch.telemetry import metrics as tmetrics
@@ -35,18 +34,18 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def host_leaves(params: Transformer) -> Dict[str, torch.Tensor]:
+def host_leaves(params: torch.nn.Module) -> Dict[str, torch.Tensor]:
     """The parameters as picklable host leaves (CPU tensors, by name): what
     travels in the Proto-Faaslet snapshot."""
     return {n: p.detach().cpu() for n, p in params.named_parameters()}
 
 
-def bind_params(cfg, leaves, device: torch.device) -> Transformer:
-    """A :class:`Transformer` on ``device`` over copies of ``leaves`` (CPU
-    tensors or numpy arrays, by name) — every parameter crosses to the
-    device, as the reference's per-call ``tree_unflatten`` of
-    ``jnp.asarray`` leaves does."""
-    p = Transformer(cfg, device="meta")
+def bind_params(cfg, leaves, device: torch.device) -> torch.nn.Module:
+    """The parameters of ``cfg``'s family (``weights.params_class``) on
+    ``device`` over copies of ``leaves`` (CPU tensors or numpy arrays, by
+    name) — every parameter crosses to the device, as the reference's
+    per-call ``tree_unflatten`` of ``jnp.asarray`` leaves does."""
+    p = params_class(cfg)(cfg, device="meta")
     state = {n: (x if isinstance(x, torch.Tensor) else numpy_to_torch(x)
                  ).to(device) for n, x in leaves.items()}
     p.load_state_dict(state, strict=True, assign=True)

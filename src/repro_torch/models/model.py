@@ -1,8 +1,9 @@
 """Unified model facade: ``build_model(cfg, ec)`` and :class:`Model`.
 
 Counterpart of ``repro.models.model`` for the families the port runs (the
-dense and MoE decoders).  Methods take the parameters (a
-:class:`~repro_torch.models.transformer.Transformer`) and inputs, as the
+dense and MoE decoders, the Mamba2 stack and the Zamba2 hybrid).  Methods
+take the parameters (a :class:`~repro_torch.models.transformer.Transformer`
+or a :class:`~repro_torch.models.ssm_stack.SSMStack`) and inputs, as the
 JAX methods take a parameter tree.  The ``extra`` inputs of the VLM and
 enc-dec families come with their slices, the dry-run input specs with
 ROADMAP "Multi-device and dry-run".  Parameters and caches are built on
@@ -18,10 +19,11 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.common import resolve_device
-from repro_torch.models import transformer
+from repro_torch.models import ssm_stack, transformer
 from repro_torch.models.execution import DEFAULT_EXEC, ExecConfig
 
-_FAMILY_MODULES = {"dense": transformer, "moe": transformer}
+_FAMILY_MODULES = {"dense": transformer, "moe": transformer,
+                   "ssm": ssm_stack, "hybrid": ssm_stack}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,7 +46,7 @@ class Model:
 
     # -- serving -----------------------------------------------------------------
     def init_cache(self, batch: int, max_len: int, device="cuda"):
-        """An empty KV cache on ``device`` (as for :meth:`init`)."""
+        """An empty serving cache on ``device`` (as for :meth:`init`)."""
         return self._mod.init_cache(self.cfg, batch, max_len,
                                     resolve_device(device))
 
@@ -62,5 +64,5 @@ def build_model(cfg: ModelConfig, ec: Optional[ExecConfig] = None) -> Model:
     if cfg.family not in _FAMILY_MODULES:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet (ROADMAP "
-            f"'Modules to port': SSM, enc-dec and VLM come in later slices)")
+            f"'Modules to port': enc-dec and VLM come in later slices)")
     return Model(cfg=cfg, ec=ec or DEFAULT_EXEC)

@@ -82,6 +82,9 @@ class Transformer(nn.Module):
         self.final_norm = L.RMSNorm(cfg, device=device)
 
 
+Params = Transformer     # the family's parameter module (weights.params_class)
+
+
 def _first_layers(params: Transformer):
     return getattr(params, "first_layers", ())
 

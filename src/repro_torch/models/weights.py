@@ -1,11 +1,12 @@
-"""Parameters of the port's decoder: drawn from a seed, or loaded from
+"""Parameters of the port's models: drawn from a seed, or loaded from
 the JAX model's parameter tree.
 
 ``from_jax_params`` takes the tree ``repro.models.transformer.init_params``
-builds — nested dicts with the layers stacked on a leading (L, ...) axis,
-and an MoE config's leading dense layers as a list of unstacked dicts —
-as numpy arrays (``np.asarray`` of each JAX leaf), so the two packages can
-run the same weights.  ``init_params`` draws fresh weights with the JAX
+or ``repro.models.ssm_stack.init_params`` builds — nested dicts with the
+layers stacked on a leading (L, ...) axis, and an MoE config's leading
+dense layers as a list of unstacked dicts — as numpy arrays
+(``np.asarray`` of each JAX leaf), so the two packages can run the same
+weights.  ``init_params`` draws fresh weights with the JAX
 package's distributions from a ``torch.Generator``: ``jax.random`` streams
 cannot be reproduced in torch, so it matches them in distribution only.
 
@@ -22,7 +23,14 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import trunc_normal
-from repro_torch.models.transformer import Transformer
+from repro_torch.models.model import build_model
+
+
+def params_class(cfg: ModelConfig):
+    """The ``nn.Module`` that holds ``cfg``'s parameters: the ``Params`` of
+    its family's module (``model._FAMILY_MODULES``; ``build_model`` raises
+    for a family not ported yet)."""
+    return build_model(cfg)._mod.Params
 
 
 def numpy_to_torch(a) -> torch.Tensor:
@@ -51,10 +59,10 @@ def jax_leaf(tree: Mapping[str, Any], name: str):
 
 
 @torch.no_grad()
-def from_jax_params(tree: Mapping[str, Any], cfg: ModelConfig,
-                    device) -> Transformer:
-    """A :class:`Transformer` on ``device`` holding the JAX tree's values."""
-    model = Transformer(cfg, device=device)
+def from_jax_params(tree: Mapping[str, Any], cfg: ModelConfig, device):
+    """The model of ``cfg``'s family (:func:`params_class`) on ``device``,
+    holding the JAX tree's values."""
+    model = params_class(cfg)(cfg, device=device)
     for name, p in model.named_parameters():
         src = numpy_to_torch(jax_leaf(tree, name))
         if tuple(src.shape) != tuple(p.shape):
@@ -65,26 +73,36 @@ def from_jax_params(tree: Mapping[str, Any], cfg: ModelConfig,
 
 
 @torch.no_grad()
-def init_params(cfg: ModelConfig, generator: torch.Generator,
-                device) -> Transformer:
+def init_params(cfg: ModelConfig, generator: torch.Generator, device):
     """Random weights as ``repro.models`` draws them: truncated normals with
     std 0.02 for the embedding and fan-in^-0.5 for every matrix, the fan-in
     being the input axis of the module's own ``x @ w`` (``shape[-2]``):
-    d for QKV, MLP and expert inputs, the router and an untied
-    unembedding; q_dim for the attention output; the layer's own hidden
-    width for a down projection (d_ff, the first dense layers' dense_d_ff,
-    the experts' moe_d_ff, the shared experts' moe_d_ff * n_shared).  Each
-    leaf is drawn in f32 and cast to its parameter's dtype (the router
-    stays f32).  Zero biases; unit norms."""
-    model = Transformer(cfg, device=device)
+    d for QKV, MLP and expert inputs, the router, an untied unembedding
+    and a Mamba2 in-projection; q_dim for the attention output; the
+    layer's own hidden width for a down projection (d_ff, the first dense
+    layers' dense_d_ff, the experts' moe_d_ff, the shared experts'
+    moe_d_ff * n_shared, a Mamba2 out-projection's d_inner).  Each leaf is
+    drawn in f32 and cast to its parameter's dtype (the router, ``A_log``,
+    ``dt_bias`` and ``D`` stay f32).  Zero biases; unit norms.  A Mamba2
+    block follows ``repro.models.ssm.mamba_init``: its conv taps at std
+    0.1, ``A_log = log U(1, 16)``, ``D`` and ``norm_scale`` 1,
+    ``dt_bias`` and ``conv_b`` 0."""
+    model = params_class(cfg)(cfg, device=device)
     for name, p in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
-        if p.ndim >= 2:
+        if leaf == "conv_w":
+            p.copy_(trunc_normal(p.shape, 0.1, p.dtype, generator=generator,
+                                 device=device))
+        elif leaf == "A_log":
+            u = torch.rand(p.shape, generator=generator, device=device,
+                           dtype=torch.float32)
+            p.copy_(torch.log(1.0 + 15.0 * u))
+        elif p.ndim >= 2:
             std = 0.02 if leaf == "embed" else p.shape[-2] ** -0.5
             p.copy_(trunc_normal(p.shape, std, p.dtype, generator=generator,
                                  device=device))
-        elif leaf in ("scale", "q_norm", "k_norm"):
+        elif leaf in ("scale", "q_norm", "k_norm", "D", "norm_scale"):
             p.fill_(1.0)
-        else:                                   # biases
+        else:                                   # biases, dt_bias, conv_b
             p.zero_()
     return model

@@ -8,7 +8,11 @@ residual equal the numpy host codec's bitwise, K4's codes and scales its
 plain version's (``.to(torch.float8_e4m3fn)``) bitwise, at the stats
 vector's size (151,936), at 16 Mi elements and at a ragged size.  K7 (the
 grouped matmul) is held at 1e-4 in f32 (the reference's gmm tolerance)
-and 3e-2 in bf16, at deepseek-moe-16b's shapes.  This
+and 3e-2 in bf16, at deepseek-moe-16b's shapes; K8 (the SSD scan) at 1e-4
+in f32 on the reference's test distributions (the reference's ssd
+tolerance) and 3e-2 with bf16 operands or the models' own decays, at
+mamba2-130m's and zamba2-1.2b's prefill shapes and at the ragged, short,
+long and grouped cases.  This
 file imports no JAX: the machine with the card has none.  Run it there
 with ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``.
 """
@@ -24,6 +28,8 @@ from repro_torch.kernels.flash_attention import attention_ref, flash_attention
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.moe_gmm import gmm, gmm_ref
 from repro_torch.kernels.moe_gmm import ops as gmm_ops
+from repro_torch.kernels.ssd_scan import ssd, ssd_chunked, ssd_ref
+from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.kernels.state_push import hostcodec
 from repro_torch.kernels.state_push import ops as sp_ops
 from repro_torch.models import ExecConfig, build_model
@@ -278,6 +284,124 @@ def test_moe_smoke_model_kernel_path_matches_plain_path(card, dtype,
         torch.testing.assert_close(k[ok], p[ok], atol=tol, rtol=tol)
         agree.append((k.argmax(-1) == p.argmax(-1)).float().mean().item())
     assert np.mean(agree) >= 0.9, agree
+
+
+# -- SSD scan (K8) ----------------------------------------------------------------
+
+SSD_CASES = {
+    # name: (Bt, S, H, P, G, N, decays)
+    "mamba2_prefill": (4, 512, 24, 64, 1, 128, "reference"),
+    "zamba2_prefill": (4, 512, 64, 64, 1, 64, "reference"),
+    "mamba2_model_decays": (4, 512, 24, 64, 1, 128, "model"),
+    "ragged_S": (2, 1000, 8, 64, 1, 128, "reference"),
+    "chunk_32": (2, 20, 8, 64, 1, 64, "reference"),
+    "16_chunks": (1, 4096, 8, 64, 1, 64, "reference"),
+    "groups_2": (2, 300, 8, 32, 2, 32, "reference"),
+    "P8_N8": (1, 24, 6, 8, 3, 8, "reference"),
+    "P128": (2, 300, 4, 128, 1, 64, "reference"),
+    "large_decays": (1, 512, 2, 64, 1, 64, "large"),
+}
+
+
+def _ssd_inputs(card, case, dtype, seed=0):
+    """numpy draws: the reference's distributions (dt ~ U(0.01, 0.2),
+    A ~ -U(0.5, 2)), the models' (dt = softplus(N(0, 1)), A ~ -U(1, 16)) or
+    the reference's overflow case (dt ~ U(0.5, 3), A -12 and -16)."""
+    Bt, S, H, P, G, N, decays = SSD_CASES[case]
+    rng = np.random.default_rng(seed)
+    x = _randn(rng, (Bt, S, H, P), dtype, card)
+    if decays == "reference":
+        dt, A = rng.uniform(0.01, 0.2, (Bt, S, H)), -rng.uniform(0.5, 2, H)
+    elif decays == "model":
+        dt, A = np.log1p(np.exp(rng.normal(size=(Bt, S, H)))), -rng.uniform(1, 16, H)
+    else:
+        dt, A = rng.uniform(0.5, 3, (Bt, S, H)), np.tile([-12.0, -16.0], H // 2)
+    B, C = (_randn(rng, (Bt, S, G, N), dtype, card) for _ in range(2))
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=card)
+    return (x, f32(dt), f32(A), B, C, f32(rng.normal(size=H)),
+            f32(rng.normal(size=(Bt, H, P, N))))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", list(SSD_CASES))
+def test_ssd_kernel_on_card(card, case, dtype):
+    x, dt, A, B, C, D, init = _ssd_inputs(card, case, dtype)
+    S = x.shape[1]
+    n = ssd_ops.LAUNCHES.value
+    y, final = ssd(x, dt, A, B, C, D, initial_state=init)
+    torch.cuda.synchronize()
+    assert ssd_ops.LAUNCHES.value == n + 1
+    assert y.dtype == dtype and final.dtype == torch.float32
+    assert bool(torch.isfinite(y.float()).all() and torch.isfinite(final).all())
+    chunk = min(256, max(16, 1 << (S - 1).bit_length()))
+    yc, fc = ssd_chunked(x, dt, A, B, C, D, init, chunk)
+    # the models' decays: the f32 cumulative sums reach -1e3, where summing
+    # in another order moves them by more than 1e-4 (ROADMAP "Faults found")
+    model_decays = SSD_CASES[case][-1] == "model"
+    tol = 3e-2 if model_decays or dtype == torch.bfloat16 else 1e-4
+    ftol = 3e-2 if model_decays else 1e-4      # the state is f32 either way
+    torch.testing.assert_close(y.float(), yc.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(final, fc, atol=ftol, rtol=ftol)
+    if S <= 1000:
+        yr, fr = ssd_ref(x, dt, A, B, C, D, initial_state=init)
+        torch.testing.assert_close(y.float(), yr.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_refuses_bad_cuda_operands(card):
+    x, dt, A, B, C, D, init = _ssd_inputs(card, "P8_N8", torch.float32)
+    n = ssd_ops.LAUNCHES.value
+    with pytest.raises(ValueError, match="dtypes"):
+        ssd(x.half(), dt, A, B.half(), C.half(), D, initial_state=init)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd(x.transpose(2, 3).contiguous().transpose(2, 3), dt, A, B, C, D,
+            initial_state=init)
+    with pytest.raises(ValueError, match="operands on"):
+        ssd(x, dt, A.cpu(), B, C, D, initial_state=init)
+    with pytest.raises(ValueError, match="float32"):
+        ssd(x, dt.double(), A, B, C, D, initial_state=init)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        ssd(x[..., :4].contiguous(), dt, A, B, C, D,
+            initial_state=init[..., :4, :].contiguous())
+    assert ssd_ops.LAUNCHES.value == n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mamba2-130m", "zamba2-1.2b"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssm_smoke_model_kernel_path_matches_plain_path(card, arch, dtype):
+    """The SSM smoke models through K8 (and, for the hybrid, K5 and K6)
+    against their plain path: full logits, prefill and four decode steps
+    fed the plain path's tokens."""
+    cfg = smoke_config(arch).with_overrides(dtype=dtype, param_dtype=dtype)
+    kern = build_model(cfg, ExecConfig())
+    plain = build_model(cfg, ExecConfig(backend="torch"))
+    params = kern.init(torch.Generator(device=card).manual_seed(0), card)
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 40)), dtype=torch.int32, device=card)
+    tol = 1e-4 if dtype == "float32" else 5e-2
+    n = ssd_ops.LAUNCHES.value
+    with torch.no_grad():
+        torch.testing.assert_close(kern.logits(params, tokens),
+                                   plain.logits(params, tokens),
+                                   atol=tol, rtol=tol)
+        caches = [m.init_cache(2, 44, card) for m in (kern, plain)]
+        (lk, _, n_tok), (lp, _, _) = (m.prefill(params, tokens, c)
+                                      for m, c in zip((kern, plain), caches))
+        for i in range(4):
+            torch.testing.assert_close(lk, lp, atol=tol, rtol=tol)
+            tok = lp.argmax(-1).to(torch.int32)
+            idx = torch.full((2,), n_tok + i, dtype=torch.int32, device=card)
+            lk, _ = kern.decode_step(params, tok, caches[0], idx)
+            lp, _ = plain.decode_step(params, tok, caches[1], idx)
+        torch.testing.assert_close(lk, lp, atol=tol, rtol=tol)
+        for k in caches[0]:
+            torch.testing.assert_close(caches[0][k].float(),
+                                       caches[1][k].float(), atol=tol,
+                                       rtol=tol)
+    assert ssd_ops.LAUNCHES.value == n + 2 * cfg.n_layers
 
 
 # -- state push (K1-K4) ----------------------------------------------------------

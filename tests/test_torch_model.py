@@ -173,7 +173,7 @@ def test_init_params_follows_the_jax_distributions():
 
 
 def test_unported_families_raise():
-    cfg = ModelConfig(**dataclasses.asdict(jax_smoke_config("mamba2-130m")))
+    cfg = ModelConfig(**dataclasses.asdict(jax_smoke_config("whisper-tiny")))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(cfg)
 

@@ -3,7 +3,9 @@
 Both packages' runtimes serve the same prompts (``default_rng(0)``, as the
 launcher draws them) with the same smoke-model weights (the JAX tree, loaded
 by ``weights.from_jax_params``) through their ``infer`` functions, with the
-shared ``serve/stats`` vector on the int8 wire.  The vocabulary is widened
+shared ``serve/stats`` vector on the int8 wire.  Every test runs for the
+dense decoder (qwen1.5-0.5b) and for the Mamba2 stack (mamba2-130m): the
+fan-out binds each family's own parameter module.  The vocabulary is widened
 to 1,280 so that the stats vector (5,120 bytes) is above the int8 wire's
 4,096-byte floor; at the smoke vocabulary (257) it would ride the exact
 wire.  Tokens agree in at least 90% of the requests (bf16 near-ties may
@@ -32,7 +34,7 @@ from repro_torch.models import build_model
 from repro_torch.models.weights import from_jax_params
 from repro_torch.state.ddo import VectorAsync
 
-ARCH, VOCAB, PROMPT, REQUESTS = "qwen1.5-0.5b", 1280, 16, 24
+ARCHS, VOCAB, PROMPT, REQUESTS = ("qwen1.5-0.5b", "mamba2-130m"), 1280, 16, 24
 MIN_AGREEMENT = 0.9
 REFERENCE_LOST_COUNTS = 3     # whole counts the reference may drop
 
@@ -58,10 +60,10 @@ def _int8_bound(pushes: int) -> float:
     return pushes * 1.0 / 127 * 1.01      # each push adds one +1
 
 
-@pytest.fixture(scope="module")
-def both():
-    jcfg = jax_smoke_config(ARCH).with_overrides(vocab_size=VOCAB)
-    tcfg = smoke_config(ARCH).with_overrides(vocab_size=VOCAB)
+@pytest.fixture(scope="module", params=ARCHS)
+def both(request):
+    jcfg = jax_smoke_config(request.param).with_overrides(vocab_size=VOCAB)
+    tcfg = smoke_config(request.param).with_overrides(vocab_size=VOCAB)
     jmodel = jax_build_model(jcfg, JaxExecConfig(backend="xla"))
     jparams = jmodel.init(jax.random.PRNGKey(0))
     flat, treedef = jax.tree_util.tree_flatten(jparams)
@@ -123,12 +125,14 @@ def test_run_faasm_fanout_reports_tokens_and_stats(both):
     assert 0 < r["param_h2d_ms"] < r["infer_ms"]
 
 
-def test_serve_main_fans_out_on_the_cpu(capsys):
-    res = serve.main(["--smoke", "--new-tokens", "2", "--faasm-requests",
-                      "16", "--state-wire", "int8", "--device", "cpu"])
+@pytest.mark.parametrize("arch,requests", [(ARCHS[0], 16), (ARCHS[1], 8)])
+def test_serve_main_fans_out_on_the_cpu(capsys, arch, requests):
+    res = serve.main(["--arch", arch, "--smoke", "--new-tokens", "2",
+                      "--faasm-requests", str(requests), "--state-wire",
+                      "int8", "--device", "cpu"])
     out = capsys.readouterr().out
-    assert re.search(r"faasm fan-out: 16 reqs in [\d.]+s \([\d.]+ req/s\) "
-                     r"p50=[\d.]+ms p99=[\d.]+ms", out), out
+    assert re.search(rf"faasm fan-out: {requests} reqs in [\d.]+s "
+                     r"\([\d.]+ req/s\) p50=[\d.]+ms p99=[\d.]+ms", out), out
     assert re.search(r"serve/stats pushes \(int8 wire\): [\d.]+MB", out), out
     r = res["faasm"]
     assert all(t is not None for t in r["tokens"])
