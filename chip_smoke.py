@@ -6,7 +6,10 @@
 Phases, each fatal on failure:
 
 1. build: compile every CUDA kernel from ``src/repro_torch/kernels/csrc``
-   (one nvcc per source, all at once);
+   (one nvcc per source, all at once), print ptxas's registers and spills,
+   and count the tensor-core instructions (HGMMA, HMMA) in the flash
+   library's SASS where the toolkit has cuobjdump: the bf16 flash kernel
+   must have HGMMA;
 2. parity: hold each kernel against its plain PyTorch version on the card
    at several shapes, in bf16 and f32 (f32 references with TF32 off); the
    state-push kernels K1-K4 at the serve/stats size and a ragged one, K1
@@ -61,8 +64,9 @@ Phases, each fatal on failure:
    on the same input): every output within the bf16 kernel tolerance;
 10. moe timing: K7 at the decode shape (24 rows, one layer's real gate
    weights) and at the sorted-prefill shape (12,288 rows, all 64 experts)
-   as in phase 7; then the warm MoE prefill and decode, and one profiled
-   decode loop for the device's busy share;
+   as in phase 7, and K5 at the model's prefill shape (D 128); then the
+   warm MoE prefill and decode, and one profiled decode loop for the
+   device's busy share;
 11. ssm serve, for mamba2-130m and then zamba2-1.2b at full width (bf16,
    random weights from the seed; batch 4, prompt 512, 32 new tokens),
    counters zeroed just before: the prefill runs K8 (the SSD scan) once
@@ -81,7 +85,8 @@ Phases, each fatal on failure:
    repeated on the plain path on the same input, held within the bf16
    kernel tolerance;
 13. ssm timing: K8 at both models' prefill shapes, with decays and step
-   sizes as the models draw them, as in phase 7; then each model's warm
+   sizes as the models draw them, as in phase 7, and K5 at zamba2-1.2b's
+   shared-block shape (H 32); then each model's warm
    prefill and decode, and one profiled decode loop.
 
 Phase 2 also holds K8 against its plain version (and the sequential
@@ -97,7 +102,11 @@ state, with two groups of B and C, and at the reference's large decays
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``.  Without a CUDA card, or run
 outside the repository, it exits non-zero and prints no result.
-``python3 chip_smoke.py parity`` stops after phase 2 and prints no result.
+``python3 chip_smoke.py parity`` stops after phase 2 and prints no result;
+``python3 chip_smoke.py flash`` builds, holds the attention kernels
+against their plain versions, times K5 at the three prefill shapes (as in
+phases 7, 10 and 13, with no launches counted) and stops: run it from two
+checkouts in one call to compare two designs of K5.
 The qwen phases run first; their model is freed before the 32.8 GB MoE
 model is drawn on the card, and that before the SSM models.
 """
@@ -146,7 +155,18 @@ FLASH_CASES = [
     (2, 16, 40, 4, 2, 16, False, 0),
     (1, 16, 16, 16, 16, 64, True, 0),        # the fan-out's forward
     (4, 512, 512, 16, 16, 128, True, 0),     # deepseek-moe-16b's prefill
+    (4, 512, 512, 32, 32, 64, True, 0),      # zamba2-1.2b's shared block
+    (2, 200, 330, 8, 8, 128, True, 130),     # ragged tiles, q_offset, D 128
+    (2, 150, 150, 16, 4, 128, True, 0),      # GQA G=4, D 128
+    (2, 40, 50, 8, 2, 64, True, 10),         # fewer keys than one KV tile
+    (1, 70, 20, 4, 4, 128, False, 0),
 ]
+# the bf16 parity case whose error each timing row of K5 reports
+FLASH_ROWS = {
+    (4, 512, 512, 16, 16, 64, True, 0): "flash_attention",
+    (4, 512, 512, 16, 16, 128, True, 0): f"flash_attention[{MOE_ARCH}]",
+    (4, 512, 512, 32, 32, 64, True, 0): f"flash_attention[{SSM_ARCHS[1]}]",
+}
 DECODE_CASES = [
     # B, S, H, K, D, lengths
     (4, 544, 16, 16, 64, (513, 530, 543, 544)),  # the serving decode
@@ -253,6 +273,22 @@ def phase_build():
                 log(f"  ptxas {name}: {entry[:60]}: {line.split(':', 1)[1].strip()}")
             elif "spill" in line and " 0 bytes spill stores" not in line:
                 log(f"  ptxas {name}: {entry[:60]}: SPILLS {line.strip()}")
+            elif "warning" in line.lower() or "Performance" in line:
+                log(f"  nvcc {name}: {line.strip()[:240]}")
+    # the bf16 flash kernel must run on the tensor cores: count the wgmma
+    # (HGMMA) and mma.sync (HMMA) instructions in the library's SASS
+    cuobjdump = Path(_build.nvcc_path()).with_name("cuobjdump")
+    if not cuobjdump.exists():
+        log("  sass: no cuobjdump in the toolkit; tensor-core use not counted")
+        return
+    sass = subprocess.run(
+        [str(cuobjdump), "-sass", str(_build.library_path("flash_attention"))],
+        capture_output=True, text=True, timeout=120, check=True).stdout
+    n_hgmma = len(re.findall(r"\bHGMMA\.", sass))
+    n_hmma = len(re.findall(r"\bHMMA\.", sass))
+    log(f"  sass flash_attention: {n_hgmma} HGMMA, {n_hmma} HMMA instructions")
+    if n_hgmma == 0:
+        raise AssertionError("flash_attention: no HGMMA in its SASS")
 
 
 def phase_parity() -> dict:
@@ -280,8 +316,9 @@ def phase_parity() -> dict:
             err = check_close(f"flash {dtype} B{B} Sq{Sq} Sk{Sk} H{H} K{K} "
                               f"D{D} causal={causal} q_offset={off}",
                               got, want, tol)
-            if dtype == torch.bfloat16 and (B, Sq, H, D) == (BATCH, PROMPT, 16, 64):
-                errs["flash_attention"] = err
+            case = (B, Sq, Sk, H, K, D, causal, off)
+            if dtype == torch.bfloat16 and case in FLASH_ROWS:
+                errs[FLASH_ROWS[case]] = err
         for (B, S, H, K, D, lens) in DECODE_CASES:
             q = torch.randn(B, H, D, generator=g, device=dev).to(dtype)
             k = torch.randn(B, S, K, D, generator=g, device=dev).to(dtype)
@@ -558,20 +595,15 @@ def phase_reference(res) -> list:
     return ref_logits
 
 
-def phase_timing(res, launches, errs) -> list:
+def _flash_row(name, B, S, H, K, D, launches, errs, g) -> tuple:
+    """K5 at one layer's prefill call (bf16, causal, Sq = Sk = S): its
+    kernels-line row (device time from the profiler, plain version, SDPA,
+    bound) and its back-to-back call time."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels.decode_attention import (decode_attention,
-                                                      decode_attention_ref)
     from repro_torch.kernels.flash_attention import (attention_ref,
                                                      flash_attention)
-    cfg = res["cfg"]
-    B, S, H, K, D = BATCH, PROMPT, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     bf16, dev = torch.bfloat16, "cuda"
-    g = torch.Generator(device=dev).manual_seed(SEED + 1)
-    rows = []
-
-    # flash: the prefill call of one layer
     q = torch.randn(B, S, H, D, generator=g, device=dev).to(bf16)
     k = torch.randn(B, S, K, D, generator=g, device=dev).to(bf16)
     v = torch.randn(B, S, K, D, generator=g, device=dev).to(bf16)
@@ -579,15 +611,58 @@ def phase_timing(res, launches, errs) -> list:
     nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
     flops = 4 * D * B * H * S * (S + 1) // 2            # causal pairs only
     kernel = lambda: flash_attention(q, k, v, causal=True)
-    back_to_back = {"flash_attention": call_ms(kernel)}
-    rows.append(_row(
-        "flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
+    back_to_back = call_ms(kernel)
+    row = _row(
+        name, "src/repro_torch/kernels/csrc/flash_attention.cu",
         "src/repro/kernels/flash_attention/kernel.py:84", launches, errs,
         device_ms(kernel),
         device_ms(lambda: attention_ref(q, k, v, causal=True), iters=5),
         device_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt,
                                                          is_causal=True)),
-        nbytes, flops))
+        nbytes, flops)
+    return row, back_to_back
+
+
+def _log_flash_row(r, back_to_back, shape) -> None:
+    log(f"timing, K5 at {shape}: {r['ms'] * 1e3:.1f}us device, "
+        f"{back_to_back * 1e3:.1f}us back-to-back, bound "
+        f"{r['bound_ms'] * 1e3:.2f}us ({r['bound_by']}), plain "
+        f"{r['plain_ms'] * 1e3:.1f}us, library {r['library_ms'] * 1e3:.1f}us "
+        f"(SDPA), launches {r['launches']}")
+
+
+def phase_timing_flash(res, launches: int, errs) -> list:
+    """K5 at a served model's prefill shape (batch 4, prompt 512), named
+    by the model, with the launches of its main-path run."""
+    import torch
+    cfg = res["cfg"]
+    name = "flash_attention" if cfg.name == ARCH else \
+        f"flash_attention[{cfg.name}]"
+    H, K, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    g = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    row, back_to_back = _flash_row(name, BATCH, PROMPT, H, K, D,
+                                   {name: launches}, errs, g)
+    _log_flash_row(row, back_to_back, f"{cfg.name}'s prefill (B {BATCH} "
+                   f"S {PROMPT} H {H} K {K} D {D})")
+    return [row]
+
+
+def phase_timing(res, launches, errs) -> list:
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      decode_attention_ref)
+    cfg = res["cfg"]
+    B, S, H, K, D = BATCH, PROMPT, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    bf16, dev = torch.bfloat16, "cuda"
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    rows = []
+
+    # flash: the prefill call of one layer
+    row, back_to_back = _flash_row("flash_attention", B, S, H, K, D,
+                                   launches, errs, g)
+    rows.append(row)
+    back_to_back = {"flash_attention": back_to_back}
 
     # decode: the last decode step of one layer (cache of PROMPT+NEW_TOKENS)
     Smax, n = PROMPT + NEW_TOKENS, PROMPT + NEW_TOKENS - 1
@@ -1525,12 +1600,19 @@ def main(argv) -> int:
         return 2
     sys.path.insert(0, str(SRC))
     parity_only = argv == ["parity"]      # a new kernel's first, short run
+    flash_only = argv == ["flash"]        # K5 alone: A/B of its designs
     t0 = time.perf_counter()
     smi = nvidia_smi()
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; "
         f"{torch.cuda.get_device_name(0)}")
     phase_build()
     errs = phase_parity()
+    if flash_only:
+        from repro_torch.configs import get_config
+        for arch in (ARCH, MOE_ARCH, SSM_ARCHS[1]):
+            phase_timing_flash({"cfg": get_config(arch)}, 0, errs)
+        log(smi)
+        return 0
     errs.update(phase_parity_state_push())
     errs.update(phase_parity_gmm())
     errs.update(phase_parity_ssd())
@@ -1557,6 +1639,7 @@ def main(argv) -> int:
     phase_moe_reference(moe_res, routes)
     del routes
     rows += phase_timing_gmm(moe_res, moe_launches, errs)
+    rows += phase_timing_flash(moe_res, moe_launches["flash_attention"], errs)
     phase_warm_serve(moe_res, decode_only=True)
     del moe_res                   # the MoE model leaves the card
     gc.collect()
@@ -1567,6 +1650,9 @@ def main(argv) -> int:
         phase_ssm_sublayers(res)
         # one SSM model on the card at a time: time and profile it now
         rows += phase_timing_ssd(res, ssm_launches["ssd_scan"], errs)
+        if ssm_launches["flash_attention"]:      # the hybrid's shared block
+            rows += phase_timing_flash(res, ssm_launches["flash_attention"],
+                                       errs)
         phase_warm_serve(res, decode_only=True)
         del res
         gc.collect()

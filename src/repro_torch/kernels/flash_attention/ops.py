@@ -3,7 +3,9 @@ on the CPU.
 
 Counterpart of ``repro.kernels.flash_attention.ops.flash_attention``.  A
 CUDA tensor goes to ``csrc/flash_attention.cu`` (the port of the Pallas
-kernel); a CPU tensor, or ``backend="torch"``, to :func:`ref.attention_ref`.
+kernel: bf16 at head dim 64 and 128 on the tensor cores, every other dtype
+and width on the CUDA cores; the C entry point picks by dtype and D); a
+CPU tensor, or ``backend="torch"``, to :func:`ref.attention_ref`.
 The TPU path's padding to its (8, 128) tiles is gone: the kernel masks the
 ragged edges itself.  The backward pass comes with the training slice.
 """
@@ -51,7 +53,7 @@ def _flash_cuda(q, k, v, causal, scale, q_offset):
         raise ValueError(f"flash_attention: dtypes {q.dtype}, {k.dtype}, "
                          f"{v.dtype}; the kernel takes one of "
                          f"{tuple(DTYPE_CODES)}")
-    check_operands("flash_attention", q, k, v)
+    check_operands("flash_attention", q, k, v)   # TMA needs 16-byte aligned
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out

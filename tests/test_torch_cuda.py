@@ -46,6 +46,12 @@ FLASH_CASES = [
     (2, 100, 300, 8, 2, 64, True, 200),
     (2, 77, 77, 8, 8, 128, False, 0),
     (1, 16, 16, 16, 16, 64, True, 0),           # the fan-out's forward
+    (4, 512, 512, 16, 16, 128, True, 0),        # deepseek-moe-16b's prefill
+    (4, 512, 512, 32, 32, 64, True, 0),         # zamba2-1.2b's shared block
+    (2, 200, 330, 8, 8, 128, True, 130),        # ragged tiles, q_offset, D 128
+    (2, 150, 150, 16, 4, 128, True, 0),         # GQA G=4, D 128
+    (2, 40, 50, 8, 2, 64, True, 10),            # fewer keys than one KV tile
+    (1, 70, 20, 4, 4, 128, False, 0),
 ]
 DECODE_CASES = [
     # B, S, H, K, D

@@ -148,6 +148,11 @@ def _bad_flash_args():
         "strides": ("contiguous",
                     (q.transpose(1, 2).contiguous().transpose(1, 2), k, k)),
         "shape": (r"v \(1, 9", (q, k, torch.zeros(1, 9, 2, 64))),
+        # contiguous, but its data 2 bytes past a 16-byte boundary: TMA and
+        # the 16-byte loads need aligned operands
+        "alignment": ("aligned", (
+            torch.zeros(q.numel() + 1, dtype=torch.bfloat16)[1:].view(q.shape),
+            k.bfloat16(), k.bfloat16())),
     }
 
 
