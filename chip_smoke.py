@@ -7,17 +7,21 @@ Phases, each fatal on failure:
 
 1. build: compile every CUDA kernel from ``src/repro_torch/kernels/csrc``
    (one nvcc per source, all at once), print ptxas's registers and spills,
-   and count the tensor-core instructions (HGMMA, HMMA) in the flash
-   library's SASS where the toolkit has cuobjdump: the bf16 flash kernel
-   must have HGMMA;
+   and count the tensor-core instructions (HGMMA, HMMA) in the flash and
+   grouped-matmul libraries' SASS where the toolkit has cuobjdump: the
+   bf16 flash kernel and K7's prefill kernel must have HGMMA;
 2. parity: hold each kernel against its plain PyTorch version on the card
    at several shapes, in bf16 and f32 (f32 references with TF32 off); the
    state-push kernels K1-K4 at the serve/stats size and a ragged one, K1
    also against the numpy host codec bitwise, K4 against its plain
    version's e4m3 cast bitwise; K7 (grouped matmul) at the decode, down
    projection and prefill shapes of deepseek-moe-16b, with all rows in one
-   expert, with rows past the last group (which must come out zero) and
-   with fewer rows than one tile, in bf16 (3e-2) and f32 (1e-4, the
+   expert, with rows past the last group (which must come out zero), with
+   fewer rows than one tile, at T on and one past the threshold between
+   its two bf16 kernels, with groups starting inside a TMA box, with one
+   empty expert among 64, with a quarter of 8,192 rows past the groups,
+   at f 200, and at d 32 (streamed at any T) with one 300-row group and
+   with rows past the groups, in bf16 (3e-2) and f32 (1e-4, the
    reference's gmm tolerance);
 3. serve: run the launcher's main path, ``repro_torch.launch.serve.main``,
    on qwen1.5-0.5b at full width in bf16 with random weights from a seed
@@ -50,7 +54,8 @@ Phases, each fatal on failure:
    prompt 512, 32 new tokens), counters zeroed just before: the prefill
    takes the GShard einsum dispatch, every decode step the sorted path
    through K7 (3 calls in each of the 27 MoE layers), so K5 launches 28
-   times, K6 28 x 31 and K7 27 x 3 x 31; every router call's expert sets
+   times, K6 28 x 31 and K7 27 x 3 x 31, counted by shape as 27 x 2 x
+   31 at gate/up and 27 x 31 at down; every router call's expert sets
    are recorded;
 9. moe reference: the same prompt and generated tokens through the plain
    path, three ways.  bf16 rounds apart on the two paths, so a near-tie
@@ -62,9 +67,12 @@ Phases, each fatal on failure:
    90% of all rows; the logits are printed.  Sublayer by sublayer (every
    attention and FFN call of a kernel-path run repeated on the plain path
    on the same input): every output within the bf16 kernel tolerance;
-10. moe timing: K7 at the decode shape (24 rows, one layer's real gate
-   weights) and at the sorted-prefill shape (12,288 rows, all 64 experts)
-   as in phase 7, and K5 at the model's prefill shape (D 128); then the
+10. moe timing: K7 at the decode step's gate/up and down shapes (24
+   rows against every MoE layer's real weights in turn, so that no call
+   finds its weights in L2; each row carries its shape's launches from
+   phase 8) and at the sorted-prefill shape (12,288 rows, all 64
+   experts) as in phase 7, and K5 at the
+   model's prefill shape (D 128); then the
    warm MoE prefill and decode, and one profiled decode loop for the
    device's busy share;
 11. ssm serve, for mamba2-130m and then zamba2-1.2b at full width (bf16,
@@ -106,7 +114,14 @@ outside the repository, it exits non-zero and prints no result.
 ``python3 chip_smoke.py flash`` builds, holds the attention kernels
 against their plain versions, times K5 at the three prefill shapes (as in
 phases 7, 10 and 13, with no launches counted) and stops: run it from two
-checkouts in one call to compare two designs of K5.
+checkouts in one call to compare two designs of K5.  ``python3
+chip_smoke.py gmm`` builds, holds K7 against its plain version at every
+phase-2 case in both dtypes, times it at the decode gate/up, decode down
+and sorted-prefill shapes beside its plain version and ``grouped_mm``
+(weights drawn at model scale, 64 x d x f in bf16, four tensors per shape
+taken in turn), times each of its bf16 kernels forced at those shapes and
+at a sweep of T (the evidence for the wrapper's threshold between them)
+with its host time per call, and stops.
 The qwen phases run first; their model is freed before the 32.8 GB MoE
 model is drawn on the card, and that before the SSM models.
 """
@@ -217,25 +232,82 @@ def device_ms(fn, iters: int = 20, warmup: int = 5,
               attempts: int = 3) -> float:
     """Device time per call: every kernel ``fn`` launches, summed from
     torch.profiler's CUDA trace — the work's own time, whatever the host's
-    launch overhead between calls.  A trace that comes back with no device
-    event at all (seen once on the card, for 20 calls of a 2 us kernel,
-    where the same phase had traced before) is taken again, up to
-    ``attempts`` times."""
+    launch overhead between calls.  The profiler loses kernel records at
+    times (most traces of 20 calls did, late in a full run, when they
+    recorded from their first call), which gives too small a time per
+    call: so each trace opens with a round of ``iters`` calls whose
+    records are discarded (the profiler's own warm-up step), and a trace
+    counts only when it holds device events and every kernel's records
+    are a multiple of ``iters``.  Another is taken again, up to
+    ``attempts`` times; when none came back whole (on one card every trace
+    of one row did), the time is taken by CUDA events instead
+    (``queued_ms``) and logged as such."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     for attempt in range(attempts):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        total_us = sum(e.self_device_time_total for e in device_events(prof))
-        if total_us > 0:
-            return total_us / iters / 1e3
-        log(f"  (trace {attempt + 1} of {attempts} saw no device time)")
-    raise RuntimeError("the profiler saw no device time")
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            for _ in range(2):            # the warm-up round, then the window
+                for _ in range(iters):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        events = device_events(prof)
+        counts = [e.count for e in events]
+        if events and all(c % iters == 0 for c in counts):
+            return sum(e.self_device_time_total for e in events) / iters / 1e3
+        log(f"  (trace {attempt + 1} of {attempts} incomplete: "
+            f"{sum(counts)} device records for {iters} calls)")
+    ms, how = queued_ms(fn, iters)
+    log(f"  (device time from CUDA events instead, {how}: "
+        f"{ms * 1e3:.2f}us per call)")
+    return ms
+
+
+def queued_ms(fn, iters: int = 20, attempts: int = 3) -> tuple:
+    """Time per call of ``iters`` calls queued behind a kernel that keeps
+    the card asleep until the host has queued them all, by CUDA events
+    around the calls: the card then runs them back to back, so the time is
+    the device's, with the gaps of its own queue between kernels and
+    without the host's launch time.  The card must still be asleep when
+    the last call is queued (its start event not yet reached), else the
+    sleep is made longer; a ``fn`` that waits for the card on the host
+    never passes that test, and then the back-to-back time of the last
+    attempt (an upper bound) is returned.  Returns (ms, how)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    cycles = 1 << 22
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(cycles)
+    end.record()
+    end.synchronize()
+    per_s = cycles / (start.elapsed_time(end) / 1e3)   # sleep cycles a second
+    sleep = int(per_s * (2 * host_s + 1e-3))
+    for _ in range(attempts):
+        torch.cuda._sleep(sleep)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        asleep = not start.query()
+        end.synchronize()
+        ms = start.elapsed_time(end) / iters
+        if asleep:
+            return ms, f"{iters} calls queued behind a sleeping kernel"
+        sleep *= 4
+    return ms, f"{iters} calls back to back (the host waited for the card)"
 
 
 def check_close(name: str, got, want, tol: float) -> float:
@@ -275,20 +347,22 @@ def phase_build():
                 log(f"  ptxas {name}: {entry[:60]}: SPILLS {line.strip()}")
             elif "warning" in line.lower() or "Performance" in line:
                 log(f"  nvcc {name}: {line.strip()[:240]}")
-    # the bf16 flash kernel must run on the tensor cores: count the wgmma
-    # (HGMMA) and mma.sync (HMMA) instructions in the library's SASS
+    # the bf16 flash kernel and K7's prefill kernel must run on the tensor
+    # cores: count the wgmma (HGMMA) and mma.sync (HMMA) instructions in
+    # each library's SASS
     cuobjdump = Path(_build.nvcc_path()).with_name("cuobjdump")
     if not cuobjdump.exists():
         log("  sass: no cuobjdump in the toolkit; tensor-core use not counted")
         return
-    sass = subprocess.run(
-        [str(cuobjdump), "-sass", str(_build.library_path("flash_attention"))],
-        capture_output=True, text=True, timeout=120, check=True).stdout
-    n_hgmma = len(re.findall(r"\bHGMMA\.", sass))
-    n_hmma = len(re.findall(r"\bHMMA\.", sass))
-    log(f"  sass flash_attention: {n_hgmma} HGMMA, {n_hmma} HMMA instructions")
-    if n_hgmma == 0:
-        raise AssertionError("flash_attention: no HGMMA in its SASS")
+    for name in ("flash_attention", "moe_gmm"):
+        sass = subprocess.run(
+            [str(cuobjdump), "-sass", str(_build.library_path(name))],
+            capture_output=True, text=True, timeout=120, check=True).stdout
+        n_hgmma = len(re.findall(r"\bHGMMA\.", sass))
+        n_hmma = len(re.findall(r"\bHMMA\.", sass))
+        log(f"  sass {name}: {n_hgmma} HGMMA, {n_hmma} HMMA instructions")
+        if n_hgmma == 0:
+            raise AssertionError(f"{name}: no HGMMA in its SASS")
 
 
 def phase_parity() -> dict:
@@ -338,17 +412,23 @@ def phase_parity() -> dict:
     return errs
 
 
-def _gmm_sizes(g, kind: str, T: int, E: int = 64):
+def _gmm_sizes(g, kind, T: int, E: int = 64):
     """Group sizes on the card: ``draws`` as one decode step's top-6 picks
     (T draws of 64 experts), ``skewed`` over 48 of the 64 experts (the
-    others empty), ``one`` all rows in expert 17, ``tail`` three quarters
-    of the rows in groups, ``tiny`` 2 + 3 rows."""
+    others empty), ``hole`` draws over every expert but 32, ``one`` all
+    rows in expert 17, ``tail`` three quarters of the rows in groups,
+    ``tiny`` 2 + 3 rows; a list gives the sizes themselves."""
     import torch
+    if not isinstance(kind, str):
+        return torch.tensor(kind, dtype=torch.int32, device="cuda")
     if kind == "draws":
         e = torch.randint(0, E, (T,), generator=g, device="cuda")
     elif kind == "skewed":
         active = torch.randperm(E, generator=g, device="cuda")[:48]
         e = active[torch.randint(0, 48, (T,), generator=g, device="cuda")]
+    elif kind == "hole":
+        e = torch.randint(0, E - 1, (T,), generator=g, device="cuda")
+        e = e + (e >= 32).long()
     elif kind == "one":
         e = torch.full((T,), 17, device="cuda")
     elif kind == "tail":
@@ -358,6 +438,8 @@ def _gmm_sizes(g, kind: str, T: int, E: int = 64):
     return torch.bincount(e, minlength=E).to(torch.int32)
 
 
+# a group starting at row 3, then at 520 and 531 (inside TMA boxes)
+RAGGED_SIZES = [3, 517, 11] + [0] * 2 + [700] + [0] * 57 + [305]
 GMM_CASES = [
     # name, T, d, f, group sizes
     ("decode gate/up", 24, 2048, 1408, "draws"),
@@ -366,6 +448,19 @@ GMM_CASES = [
     ("one expert", 300, 2048, 1408, "one"),
     ("rows past the groups", 200, 512, 1408, "tail"),
     ("fewer rows than a tile", 5, 2048, 1408, "tiny"),
+    ("T at the regime threshold", 63, 2048, 1408, "draws"),
+    ("T one past the threshold", 64, 2048, 1408, "draws"),
+    ("groups starting inside a TMA box", 1536, 2048, 1408, RAGGED_SIZES),
+    ("64 experts, one empty in the middle", 4096, 2048, 1408, "hole"),
+    ("large T, a quarter past the groups", 8192, 2048, 1408, "tail"),
+    ("f 200, tensor cores", 2048, 512, 200, "draws"),
+    ("f 200, streaming", 24, 512, 200, "draws"),
+    ("one expert, streaming (d 32)", 300, 32, 1408, "one"),
+    ("rows past the groups, streaming (d 32)", 200, 32, 1408, "tail"),
+    ("a tile per row, streaming (the grid's extent)", 48, 2048, 1408,
+     [1] * 47 + [0] * 17),
+    ("a ragged tile per group, streaming (d 32)", 300, 32, 1408,
+     [225] + [1] * 63),
 ]
 
 
@@ -396,10 +491,10 @@ def phase_parity_gmm() -> dict:
                               f"{int((gs > 0).sum())} experts, "
                               f"{int(gs.sum())} rows in groups",
                               got, want, tol)
-            if dtype == torch.bfloat16 and name == "decode gate/up":
-                errs["moe_gmm"] = err
-            if dtype == torch.bfloat16 and name == "prefill":
-                errs["moe_gmm[prefill]"] = err
+            row = {"decode gate/up": "moe_gmm", "decode down": "moe_gmm[down]",
+                   "prefill": "moe_gmm[prefill]"}.get(name)
+            if dtype == torch.bfloat16 and row:
+                errs[row] = err
     return errs
 
 
@@ -612,6 +707,8 @@ def _flash_row(name, B, S, H, K, D, launches, errs, g) -> tuple:
     flops = 4 * D * B * H * S * (S + 1) // 2            # causal pairs only
     kernel = lambda: flash_attention(q, k, v, causal=True)
     back_to_back = call_ms(kernel)
+    queued, how = queued_ms(kernel)
+    log(f"  {name}: {queued * 1e3:.2f}us per call by CUDA events, {how}")
     row = _row(
         name, "src/repro_torch/kernels/csrc/flash_attention.cu",
         "src/repro/kernels/flash_attention/kernel.py:84", launches, errs,
@@ -1071,6 +1168,20 @@ def phase_moe_serve() -> tuple:
     log(f"  launches {launches} (expected {want})")
     if launches != want:
         raise AssertionError(f"launches {launches}, expected {want}")
+    # K7 by shape, as its wrapper counted them: each decode step's gate and
+    # up projections (d, f) and its down projection (f, d) in every layer
+    from repro_torch.kernels.moe_gmm import ops as gmm_ops
+    d, f = cfg.d_model, cfg.moe_d_ff
+    by_shape = gmm_ops.LAUNCHES.by_key()
+    want_shape = {(d, f): 2 * n_moe * (NEW_TOKENS - 1),
+                  (f, d): n_moe * (NEW_TOKENS - 1)}
+    log(f"  K7 launches by (d, f) {by_shape} (expected {want_shape})")
+    if by_shape != want_shape:
+        raise AssertionError(f"K7 launches by shape {by_shape}, expected "
+                             f"{want_shape}")
+    # the kernels line's K7 rows are by shape
+    launches["moe_gmm"] = by_shape[(d, f)]
+    launches["moe_gmm[down]"] = by_shape[(f, d)]
     gen, logits = res["gen"], res["logits"]
     if tuple(gen.shape) != (BATCH, NEW_TOKENS) or len(logits) != NEW_TOKENS:
         raise AssertionError(f"generated {tuple(gen.shape)}, "
@@ -1289,61 +1400,157 @@ def phase_moe_reference(res, kernel_routes) -> None:
                              f"< {MIN_ARGMAX_AGREEMENT}")
 
 
-def _grouped_mm(x, w, gs):
+def _grouped_mm(x, ws, gs):
     """One PyTorch call computing K7's function, where this PyTorch has it:
-    ``torch.nn.functional.grouped_mm`` with the group ends as offsets."""
+    ``torch.nn.functional.grouped_mm`` with the group ends as offsets, on
+    the weight tensors ``ws`` in turn."""
+    import itertools
     import torch
     import torch.nn.functional as F
     if not hasattr(F, "grouped_mm"):
         return None
     offs = torch.cumsum(gs, 0, dtype=torch.int32)
-    return lambda: F.grouped_mm(x, w, offs=offs)
+    nxt = itertools.cycle(ws).__next__
+    return lambda: F.grouped_mm(x, nxt(), offs=offs)
+
+
+def _gmm_row(name, x, ws, gs, launches, errs) -> dict:
+    """K7's kernels-line row at one shape: device time (profiler), plain
+    version, ``grouped_mm`` and the bound for this call's active experts.
+    Each call takes the next of the weight tensors ``ws`` in turn, as the
+    layers of a decode step do, so that no call finds the last one's
+    weights in the 50 MB L2: at decode one call streams ~115 MB."""
+    import itertools
+    from repro_torch.kernels.moe_gmm import gmm, gmm_ref
+    T, d = x.shape
+    f = ws[0].shape[2]
+    active = int((gs > 0).sum())
+    nbytes = 2 * (active * d * f + T * d + T * f)
+    nxt = itertools.cycle(ws).__next__
+    kernel = lambda: gmm(x, nxt(), gs)
+    library = _grouped_mm(x, ws, gs)
+    lib_ms = None
+    if library is not None:
+        try:
+            lib_ms = device_ms(library)
+        except (RuntimeError, TypeError, ValueError) as exc:  # yardstick
+            log(f"  grouped_mm refused these operands: {exc}")
+    row = _row(name, "src/repro_torch/kernels/csrc/moe_gmm.cu",
+               "src/repro/kernels/moe_gmm/kernel.py:37", {name: launches},
+               errs, device_ms(kernel),
+               device_ms(lambda: gmm_ref(x, nxt(), gs), iters=5), lib_ms,
+               nbytes, 2 * T * d * f)
+    lib = (f"{lib_ms * 1e3:.1f}us (grouped_mm)" if lib_ms is not None
+           else "none")
+    log(f"  {name}: T {T} d {d} f {f}, {active} experts "
+        f"({nbytes / 1e6:.1f} MB, {2 * T * d * f / 1e9:.3f} GFLOP), "
+        f"{len(ws)} weight tensors in turn: {row['ms'] * 1e3:.1f}us device, "
+        f"{queued_ms(kernel)[0] * 1e3:.1f}us queued (CUDA events), "
+        f"back-to-back {call_ms(kernel) * 1e3:.1f}us, bound "
+        f"{row['bound_ms'] * 1e3:.1f}us ({row['bound_by']}), plain "
+        f"{row['plain_ms'] * 1e3:.1f}us, library {lib}, launches "
+        f"{row['launches']}")
+    return row
 
 
 def phase_timing_gmm(res, launches, errs) -> list:
-    """K7 at the decode shape (one step's 24 rows against layer 0's real
-    gate weights) and at the sorted-prefill shape (12,288 rows over all 64
-    experts): device time (profiler), plain version, library call, bound."""
+    """K7 at the decode step's two shapes (24 rows against the real gate/up
+    and down weights of every MoE layer, in turn) and at the sorted-prefill
+    shape (12,288 rows over all 64 experts of every layer's gate weights)."""
     import torch
-    from repro_torch.kernels.moe_gmm import gmm, gmm_ref
-    cfg = res["cfg"]
-    d, f, E = cfg.d_model, cfg.moe_d_ff, cfg.n_experts
+    cfg, layers = res["cfg"], [blk.moe for blk in res["params"].layers]
     g = torch.Generator(device="cuda").manual_seed(SEED + 5)
-    w = res["params"].layers[0].moe.w_gate
-    rows = []
-    for tag, T in (("", BATCH * cfg.experts_per_token),
-                   ("[prefill]", BATCH * PROMPT * cfg.experts_per_token)):
-        gs = _gmm_sizes(g, "draws", T, E)     # at 12,288 rows: all experts
-        x = torch.randn(T, d, generator=g, device="cuda").to(torch.bfloat16)
-        active = int((gs > 0).sum())
-        nbytes = 2 * (active * d * f + T * d + T * f)
-        flops = 2 * T * d * f
-        kernel = lambda: gmm(x, w, gs)
-        library = _grouped_mm(x, w, gs)
-        lib_ms = None
-        if library is not None:
-            try:
-                lib_ms = device_ms(library)
-            except (RuntimeError, TypeError, ValueError) as exc:  # yardstick
-                log(f"  grouped_mm refused these operands: {exc}")
-        name = "moe_gmm" + tag
-        rows.append(_row(
-            name, "src/repro_torch/kernels/csrc/moe_gmm.cu",
-            "src/repro/kernels/moe_gmm/kernel.py:37",
-            {name: launches["moe_gmm"] if not tag else 0}, errs,
-            device_ms(kernel), device_ms(lambda: gmm_ref(x, w, gs), iters=5),
-            lib_ms, nbytes, flops))
-        log(f"  {name}: T {T}, {active} experts, back-to-back "
-            f"{call_ms(kernel) * 1e3:.1f}us")
+    T_dec = BATCH * cfg.experts_per_token
+    gate_up = [w for m in layers for w in (m.w_gate, m.w_up)]
+    down = [m.w_down for m in layers]
     log("timing, K7 (device time per call from the profiler):")
-    for r in rows:
-        lib = (f"{r['library_ms'] * 1e3:.1f}us (grouped_mm)"
-               if r["library_ms"] is not None else "none")
-        log(f"  {r['name']}: {r['ms'] * 1e3:.1f}us device, bound "
-            f"{r['bound_ms'] * 1e3:.1f}us ({r['bound_by']}), plain "
-            f"{r['plain_ms'] * 1e3:.1f}us, library {lib}, launches "
-            f"{r['launches']}")
+    rows = []
+    for name, T, ws, n in (
+            ("moe_gmm", T_dec, gate_up, launches["moe_gmm"]),
+            ("moe_gmm[down]", T_dec, down, launches["moe_gmm[down]"]),
+            ("moe_gmm[prefill]", BATCH * PROMPT * cfg.experts_per_token,
+             [m.w_gate for m in layers], 0)):
+        gs = _gmm_sizes(g, "draws", T, cfg.n_experts)  # 12,288 rows: all 64
+        x = torch.randn(T, ws[0].shape[1], generator=g, device="cuda").to(
+            torch.bfloat16)
+        rows.append(_gmm_row(name, x, ws, gs, n, errs))
     return rows
+
+
+GMM_SHAPES = [   # deepseek-moe-16b: name, T, d, f
+    ("moe_gmm", 24, 2048, 1408),                # decode gate/up
+    ("moe_gmm[down]", 24, 1408, 2048),          # decode down
+    ("moe_gmm[prefill]", 12_288, 2048, 1408),   # sorted prefill
+]
+GMM_SWEEP = (64, 128, 192, 256, 384, 512, 1024, 2048, 4096)   # T
+GMM_TURNS = 4        # weight tensors per shape in the gmm mode (369 MB each)
+
+
+def _host_us(fn, iters: int = 200) -> float:
+    """Host time per call of ``fn``'s launches, without a sync between
+    them (the card's queue takes them all): the wrapper's own cost."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host = time.perf_counter() - t
+    torch.cuda.synchronize()
+    return host / iters * 1e6
+
+
+def phase_gmm_ab(errs) -> None:
+    """K7 alone: the wrapper's choice at the three shapes as in the full
+    run (weights drawn at model scale, 64 x d x f in bf16, four tensors per
+    shape taken in turn, so the 33 GB model is never drawn and no call
+    finds its weights in L2), then each bf16 kernel forced at those shapes
+    (held against the plain version) and at a sweep of T at the gate
+    shape, for the threshold between the regimes, with the host time per
+    call of each."""
+    import itertools
+    import torch
+    from repro_torch.kernels.moe_gmm import gmm_ref
+    from repro_torch.kernels.moe_gmm import ops as gmm_ops
+    g = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    tol = GMM_TOL["bfloat16"]
+    weights = {}
+
+    def weight(d, f):
+        if (d, f) not in weights:
+            weights[(d, f)] = [
+                torch.randn(64, d, f, generator=g, device="cuda",
+                            dtype=torch.bfloat16) * d ** -0.5
+                for _ in range(GMM_TURNS)]
+        return weights[(d, f)]
+
+    def forced(x, ws, gs, what):
+        """Each kernel forced on these operands: held, then timed."""
+        out = []
+        for regime in gmm_ops.REGIMES:
+            if regime == "tc" and x.shape[0] < gmm_ops.TC_BOX:
+                continue
+            check_close(f"K7 {regime} {what}",
+                        gmm_ops._gmm_cuda(x, ws[0], gs, regime),
+                        gmm_ref(x, ws[0], gs), tol)
+            nxt = itertools.cycle(ws).__next__
+            run = lambda: gmm_ops._gmm_cuda(x, nxt(), gs, regime)
+            out.append(f"{regime} {device_ms(run) * 1e3:.1f}us "
+                       f"(host {_host_us(run):.1f}us/call)")
+        log(f"  forced, {what}: {', '.join(out)}")
+
+    log("timing, K7 alone (device time per call from the profiler):")
+    for name, T, d, f in GMM_SHAPES:
+        ws = weight(d, f)
+        gs = _gmm_sizes(g, "draws", T)
+        x = torch.randn(T, d, generator=g, device="cuda").to(torch.bfloat16)
+        _gmm_row(name, x, ws, gs, 0, errs)
+        forced(x, ws, gs, name)
+    for T in GMM_SWEEP:
+        gs = _gmm_sizes(g, "draws", T)
+        x = torch.randn(T, 2048, generator=g, device="cuda").to(torch.bfloat16)
+        log(f"  T {T}: the wrapper's plan {gmm_ops.plan(T, 2048, 1408, 64)}")
+        forced(x, weight(2048, 1408), gs, f"T {T} d 2048 f 1408")
 
 
 def _serve_once(model, params, tokens,
@@ -1601,6 +1808,7 @@ def main(argv) -> int:
     sys.path.insert(0, str(SRC))
     parity_only = argv == ["parity"]      # a new kernel's first, short run
     flash_only = argv == ["flash"]        # K5 alone: A/B of its designs
+    gmm_only = argv == ["gmm"]            # K7 alone: A/B of its designs
     t0 = time.perf_counter()
     smi = nvidia_smi()
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; "
@@ -1611,6 +1819,11 @@ def main(argv) -> int:
         from repro_torch.configs import get_config
         for arch in (ARCH, MOE_ARCH, SSM_ARCHS[1]):
             phase_timing_flash({"cfg": get_config(arch)}, 0, errs)
+        log(smi)
+        return 0
+    if gmm_only:
+        errs.update(phase_parity_gmm())
+        phase_gmm_ab(errs)
         log(smi)
         return 0
     errs.update(phase_parity_state_push())

@@ -58,26 +58,37 @@ def check_operands(what: str, *tensors: torch.Tensor) -> None:
 
 
 class LaunchCounter:
-    """Launches of one kernel by this process.  The runtime's executor
-    threads call the wrappers concurrently, so the count is taken under a
-    lock (``n += 1`` alone is a read-modify-write that loses counts)."""
+    """Launches of one kernel by this process, in all and by a key the
+    wrapper names (a kernel with several shapes on one path counts each).
+    The runtime's executor threads call the wrappers concurrently, so the
+    count is taken under a lock (``n += 1`` alone is a read-modify-write
+    that loses counts)."""
 
     def __init__(self) -> None:
         self._lock = threading.Lock()
         self._n = 0
+        self._by_key: dict = {}
 
-    def add(self) -> None:
+    def add(self, key=None) -> None:
         with self._lock:
             self._n += 1
+            if key is not None:
+                self._by_key[key] = self._by_key.get(key, 0) + 1
 
     def reset(self) -> None:
         with self._lock:
             self._n = 0
+            self._by_key = {}
 
     @property
     def value(self) -> int:
         with self._lock:
             return self._n
+
+    def by_key(self) -> dict:
+        """The launches counted under each key since the last reset."""
+        with self._lock:
+            return dict(self._by_key)
 
 
 def resolve_device(device) -> torch.device:

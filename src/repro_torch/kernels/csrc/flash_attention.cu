@@ -75,9 +75,9 @@
 // with cuTensorMapEncodeTiled found through the runtime's
 // cudaGetDriverEntryPoint: no driver library is linked.  The operands
 // must be 16-byte aligned, as TMA needs (the wrapper checks it).
-#include <cuda.h>   // CUtensorMap and its enums; no driver call is linked
-
 #include "common.cuh"
+#include "hopper.cuh"   // mbarriers, TMA, wgmma descriptors, encode_tiled,
+                        // sm_count
 
 using namespace repro;
 
@@ -292,85 +292,6 @@ struct Smem {
   static constexpr int BARS = 2 * Q + 2 * STAGES * KV;
   static constexpr int BYTES = BARS + (3 * STAGES + 6) * 8 + 1024;
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               ::"r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-// Waits until the barrier's phase of parity `parity` has completed.  A wait
-// longer than 2^34 cycles (seconds) traps, so a lost arrival surfaces as a
-// launch error instead of a hung card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  const long long t0 = clock64();
-  while (true) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-    if (done) return;
-    if (clock64() - t0 > (1ll << 34)) __trap();
-  }
-}
-
-// One box of a 4-D map at coordinates (column, head, row, batch) into
-// shared memory; completion is counted in bytes on `bar`.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1, int c2,
-                                         int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n"
-      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
-        "r"(c2), "r"(c3), "r"(bar)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor, 128-byte swizzle.  `lbo` and `sbo` in
-// bytes: for a K-major operand sbo is the stride between 8-row groups
-// (1024) and lbo is unused; for an MN-major one lbo is the stride between
-// 64-column boxes along MN and sbo that between 8-row groups along K.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {   // at most N groups in flight
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Keeps the compiler from moving reads or writes of accumulator registers
-// across the asynchronous wgmma's issue and wait.
-template <int N>
-__device__ __forceinline__ void fence_regs(float* r) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
 
 // 2^x by the SFU alone (relative error ~2^-22, results below 2^-126 flush
 // to 0): exp2f adds a range fix-up that the softmax does not need.
@@ -891,34 +812,6 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap q_map,
 
 namespace tc {
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver the runtime has loaded (null if
-// it has none).  A host function: it only fills the 128-byte map.
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) {
-      fn = reinterpret_cast<EncodeTiled>(p);
-    }
-  }
-  return fn;
-}
-
 // The 4-D map over a contiguous bf16 (B, S, heads, D) tensor, innermost
 // first: (D, heads, S, B); a box is 64 columns of `rows` rows of one head
 // and batch, 128-byte swizzled; rows past S read as zeros.
@@ -974,16 +867,9 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
       raise_smem_limit(flash_tc_kernel<D>, Smem<D>::BYTES, smem_limit);
   if (err != cudaSuccess) return static_cast<int>(err);
   // persistent blocks: one per SM, each walking its share of the items
-  static int n_sm[kMaxDevices] = {};
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
+  int sms = 0;
+  const cudaError_t e = sm_count(&sms);
   if (e != cudaSuccess) return static_cast<int>(e);
-  int sms = dev < kMaxDevices ? n_sm[dev] : 0;
-  if (sms == 0) {
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    if (dev < kMaxDevices) n_sm[dev] = sms;
-  }
   const int n_items = ((Sq + BM - 1) / BM) * H * B;
   flash_tc_kernel<D><<<min(n_items, sms), THREADS, Smem<D>::BYTES, stream>>>(
       q_map, k_map, v_map, static_cast<__nv_bfloat16*>(out), Sq, Sk, H, K, B,

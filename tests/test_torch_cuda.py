@@ -8,13 +8,14 @@ residual equal the numpy host codec's bitwise, K4's codes and scales its
 plain version's (``.to(torch.float8_e4m3fn)``) bitwise, at the stats
 vector's size (151,936), at 16 Mi elements and at a ragged size.  K7 (the
 grouped matmul) is held at 1e-4 in f32 (the reference's gmm tolerance)
-and 3e-2 in bf16, at deepseek-moe-16b's shapes; K8 (the SSD scan) at 1e-4
-in f32 on the reference's test distributions (the reference's ssd
-tolerance) and 3e-2 with bf16 operands or the models' own decays, at
-mamba2-130m's and zamba2-1.2b's prefill shapes and at the ragged, short,
-long and grouped cases.  This
-file imports no JAX: the machine with the card has none.  Run it there
-with ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``.
+and 3e-2 in bf16, at deepseek-moe-16b's shapes and at the edges of its two
+bf16 kernels (the regime threshold, TMA boxes, zero tiles, ragged f); K8
+(the SSD scan) at 1e-4 in f32 on the reference's test distributions (the
+reference's ssd tolerance) and 3e-2 with bf16 operands or the models' own
+decays, at mamba2-130m's and zamba2-1.2b's prefill shapes and at the
+ragged, short, long and grouped cases.  This file imports no JAX: the
+machine with the card has none.  Run it there with
+``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``.
 """
 import numpy as np
 import pytest
@@ -165,6 +166,27 @@ GMM_CASES = {
     "rows_past_the_groups": (200, 512, 1408, "tail"),
     "fewer_rows_than_a_tile": (5, 2048, 1408, [0] * 3 + [2] + [0] * 36 + [3]
                                + [0] * 23),
+    # the edges of the two bf16 kernels (gmm_ops.plan): T on and one past
+    # the threshold, groups starting at rows 3, 520 and 531 (inside a TMA
+    # box of the tensor-core kernel), every expert but one in the middle,
+    # a quarter of the rows past the groups at a large T (the tensor-core
+    # kernel's zero tiles), f not a multiple of either kernel's columns
+    "at_the_threshold": (gmm_ops.TC_BOX - 1, 2048, 1408, "draws"),
+    "past_the_threshold": (gmm_ops.TC_BOX, 2048, 1408, "draws"),
+    "groups_inside_a_tma_box": (1536, 2048, 1408, [3, 517, 11, 0, 0, 700]
+                                + [0] * 57 + [305]),
+    "one_empty_in_the_middle": (4096, 2048, 1408, "hole"),
+    "large_t_rows_past_the_groups": (8192, 2048, 1408, "tail"),
+    "f200_tensor_cores": (2048, 512, 200, "draws"),
+    "f200_streaming": (24, 512, 200, "draws"),
+    # d 32 streams at any T: a 300-row group over 19 row tiles, zero tiles
+    "streaming_one_expert": (300, 32, 1408, [0] * 17 + [300] + [0] * 46),
+    "streaming_rows_past_the_groups": (200, 32, 1408, "tail"),
+    # the streaming kernel sizes its grid from T and E alone: every row
+    # its own tile (47 groups of one row, one zero tile: 48 blocks, the
+    # grid's whole extent), and a ragged tile in every group (d 32)
+    "streaming_a_tile_per_row": (48, 2048, 1408, [1] * 47 + [0] * 17),
+    "streaming_a_ragged_tile_per_group": (300, 32, 1408, [225] + [1] * 63),
 }
 
 
@@ -178,6 +200,9 @@ def _gmm_inputs(card, case, dtype, seed=0):
         sizes = np.bincount(active[rng.integers(0, 48, T)], minlength=64)
     elif sizes == "tail":
         sizes = np.bincount(rng.integers(0, 64, 3 * T // 4), minlength=64)
+    elif sizes == "hole":                   # expert 32 empty
+        e = rng.integers(0, 63, T)
+        sizes = np.bincount(e + (e >= 32), minlength=64)
     gs = torch.as_tensor(np.asarray(sizes), dtype=torch.int32, device=card)
     x = _randn(rng, (T, d), dtype, card)
     w = (_randn(rng, (64, d, f), torch.float32, card) * d ** -0.5).to(dtype)
@@ -218,6 +243,20 @@ def test_gmm_kernel_refuses_bad_cuda_operands(card):
         gmm(x, w, gs.cpu())
     with pytest.raises(ValueError, match="dtypes"):
         gmm(x.half(), w.half(), gs)
+    assert gmm_ops.LAUNCHES.value == n
+
+
+@pytest.mark.cuda
+def test_gmm_kernel_refuses_misaligned_operands(card):
+    """TMA needs 16-byte aligned operands: a view 2 bytes into its storage
+    is refused before any build or launch."""
+    w = torch.zeros(4, 64, 32, dtype=torch.bfloat16, device=card)
+    gs = torch.zeros(4, dtype=torch.int32, device=card)
+    x = torch.zeros(24 * 64 + 1, dtype=torch.bfloat16,
+                    device=card)[1:].view(24, 64)
+    n = gmm_ops.LAUNCHES.value
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        gmm(x, w, gs)
     assert gmm_ops.LAUNCHES.value == n
 
 

@@ -128,6 +128,98 @@ def test_gmm_wrapper_refuses_before_launch(case):
     assert gmm_ops.LAUNCHES.value == n
 
 
+def test_gmm_wrapper_refuses_misaligned_operands_before_launch():
+    """TMA needs 16-byte aligned operands: refused before any build."""
+    x = torch.zeros(24 * 64 + 1, dtype=torch.bfloat16)[1:].view(24, 64)
+    w = torch.zeros(4, 64, 32, dtype=torch.bfloat16)
+    n = gmm_ops.LAUNCHES.value
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        gmm_ops._gmm_cuda(x, w, torch.zeros(4, dtype=torch.int32))
+    assert gmm_ops.LAUNCHES.value == n
+
+
+def test_gmm_plan_is_a_function_of_the_shapes():
+    """The kernel choice takes (T, d, f, E) and nothing else: every T maps
+    to one regime, streaming below the threshold and the tensor cores from
+    it on at the served widths; shapes the tensor-core kernel does not
+    take stream at any T."""
+    import inspect
+    assert list(inspect.signature(gmm_ops.plan).parameters) == \
+        ["T", "d", "f", "E"]
+    cut = gmm_ops.TC_BOX
+    for (d, f) in ((2048, 1408), (1408, 2048)):
+        regimes = [gmm_ops.plan(T, d, f, 64) for T in range(1, 20 * cut)]
+        assert set(regimes[:cut - 1]) == {"stream"}
+        assert set(regimes[cut - 1:]) == {"tc"}
+    assert gmm_ops.plan(24, 2048, 1408, 64) == "stream"
+    assert gmm_ops.plan(12_288, 2048, 1408, 64) == "tc"
+    for T, d, f, E in ((5000, 32, 1408, 64), (5000, 2048, 56, 64),
+                       (5000, 2048, 1408, 300)):
+        assert gmm_ops.plan(T, d, f, E) == "stream"
+
+
+def test_gmm_card_wrapper_reads_no_group_size_on_the_host():
+    """No host sync on the card's path: the wrapper and its plan contain
+    no .tolist(), .item() or .cpu() call, so a decode step stays
+    graph-safe."""
+    import inspect
+    for fn in (gmm_ops.gmm, gmm_ops._gmm_cuda, gmm_ops.plan):
+        src = inspect.getsource(fn)
+        for call in (".tolist(", ".item(", ".cpu(", ".numpy("):
+            assert call not in src, (fn.__name__, call)
+
+
+class _NoHostRead(torch.Tensor):
+    def tolist(self):
+        raise AssertionError("host read of the group sizes")
+    item = cpu = numpy = __int__ = __index__ = __bool__ = tolist
+
+
+def _stub_launch(monkeypatch):
+    """The card wrapper with its C entry replaced by a stub that records
+    its arguments (the CPU has no kernel to launch)."""
+    calls = []
+    monkeypatch.setattr(gmm_ops._build, "function",
+                        lambda *a: lambda *args: calls.append(args) or 0)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device: type("S", (), {"cuda_stream": 0}))
+    return calls
+
+
+@pytest.mark.parametrize("T,regime", [(24, "stream"), (64, "tc")])
+def test_gmm_card_wrapper_passes_group_sizes_as_a_pointer(monkeypatch, T,
+                                                          regime):
+    """The wrapper hands the kernel the group sizes' address and nothing
+    read from them: with a launch stub, a group-size tensor that raises on
+    any host read goes through, in either regime."""
+    calls = _stub_launch(monkeypatch)
+    x = torch.zeros(T, 64, dtype=torch.bfloat16)
+    w = torch.zeros(4, 64, 64, dtype=torch.bfloat16)
+    gs = torch.zeros(4, dtype=torch.int32).as_subclass(_NoHostRead)
+    n = gmm_ops.LAUNCHES.value
+    gmm_ops._gmm_cuda(x, w, gs)
+    assert gmm_ops.LAUNCHES.value == n + 1
+    (args,) = calls
+    assert args[2] == gs.data_ptr()
+    # T, d, f, E, bf16, the regime; the kernels size their own grids
+    assert args[4:10] == (T, 64, 64, 4, 1, gmm_ops.REGIMES[regime])
+
+
+def test_gmm_launches_are_counted_by_shape(monkeypatch):
+    """Each launch counts once in all and once under its (d, f), as a MoE
+    decode step's gate, up and down projections do; a reset clears both."""
+    _stub_launch(monkeypatch)
+    gmm_ops.LAUNCHES.reset()
+    gs = torch.zeros(4, dtype=torch.int32)
+    for d, f in ((64, 32), (64, 32), (32, 64)):
+        gmm_ops._gmm_cuda(torch.zeros(24, d, dtype=torch.bfloat16),
+                          torch.zeros(4, d, f, dtype=torch.bfloat16), gs)
+    assert gmm_ops.LAUNCHES.value == 3
+    assert gmm_ops.LAUNCHES.by_key() == {(64, 32): 2, (32, 64): 1}
+    gmm_ops.LAUNCHES.reset()
+    assert gmm_ops.LAUNCHES.value == 0 and gmm_ops.LAUNCHES.by_key() == {}
+
+
 # -- the MoE layer ------------------------------------------------------------
 
 def _moe_setup(capacity_factor=8.0, seed=0, tokens=(2, 16)):
