@@ -7,9 +7,10 @@ Phases, each fatal on failure:
 
 1. build: compile every CUDA kernel from ``src/repro_torch/kernels/csrc``
    (one nvcc per source, all at once), print ptxas's registers and spills,
-   and count the tensor-core instructions (HGMMA, HMMA) in the flash and
-   grouped-matmul libraries' SASS where the toolkit has cuobjdump: the
-   bf16 flash kernel and K7's prefill kernel must have HGMMA;
+   and count the tensor-core instructions (HGMMA, HMMA) in the flash,
+   grouped-matmul and SSD-scan libraries' SASS where the toolkit has
+   cuobjdump: the bf16 flash kernel and K7's prefill kernel must have
+   HGMMA, K8's bf16 C·Bᵀ HMMA or HGMMA;
 2. parity: hold each kernel against its plain PyTorch version on the card
    at several shapes, in bf16 and f32 (f32 references with TF32 off); the
    state-push kernels K1-K4 at the serve/stats size and a ragged one, K1
@@ -45,7 +46,11 @@ Phases, each fatal on failure:
    (torch.profiler's CUDA trace; back-to-back call time by CUDA events is
    logged beside it) with its plain version's, that of one PyTorch library
    call computing the same function where there is one (a yardstick the
-   port never calls) and the card's bound for the work; the state-push
+   port never calls; the kernel and it are timed by one method, CUDA
+   events for both when a trace of either is not whole) and the card's
+   bound for the work; each K6 row fails unless one call launches one
+   kernel (one record a call in a whole profiler trace, one node in a
+   CUDA graph of the call, a kernel); the state-push
    kernels also at 16 Mi elements, and one host-side encode of numpy
    operands beside the host codec; then the warm prefill and decode loop,
    and one profiled run for the device's busy share;
@@ -71,8 +76,8 @@ Phases, each fatal on failure:
    rows against every MoE layer's real weights in turn, so that no call
    finds its weights in L2; each row carries its shape's launches from
    phase 8) and at the sorted-prefill shape (12,288 rows, all 64
-   experts) as in phase 7, and K5 at the
-   model's prefill shape (D 128); then the
+   experts) as in phase 7, and K5 and K6 at the
+   model's prefill and last decode step (D 128); then the
    warm MoE prefill and decode, and one profiled decode loop for the
    device's busy share;
 11. ssm serve, for mamba2-130m and then zamba2-1.2b at full width (bf16,
@@ -93,8 +98,8 @@ Phases, each fatal on failure:
    repeated on the plain path on the same input, held within the bf16
    kernel tolerance;
 13. ssm timing: K8 at both models' prefill shapes, with decays and step
-   sizes as the models draw them, as in phase 7, and K5 at zamba2-1.2b's
-   shared-block shape (H 32); then each model's warm
+   sizes as the models draw them, as in phase 7, and K5 and K6 at
+   zamba2-1.2b's shared-block shapes (H 32); then each model's warm
    prefill and decode, and one profiled decode loop.
 
 Phase 2 also holds K8 against its plain version (and the sequential
@@ -121,7 +126,19 @@ and sorted-prefill shapes beside its plain version and ``grouped_mm``
 (weights drawn at model scale, 64 x d x f in bf16, four tensors per shape
 taken in turn), times each of its bf16 kernels forced at those shapes and
 at a sweep of T (the evidence for the wrapper's threshold between them)
-with its host time per call, and stops.
+with its host time per call, and stops.  ``python3 chip_smoke.py
+decode`` holds the attention kernels against their plain versions, times
+K6 at the three served decode shapes beside SDPA (on one cache, and over
+8 caches taken in turn so that each call reads HBM), lists the kernels one
+call launches, and stops; ``python3 chip_smoke.py ssd`` holds K8 at every
+phase-2 case, times it at both SSM prefill shapes with the time of each of
+its kernels, and stops.  ``python3 chip_smoke.py profile`` serves each of
+the four models and prints the device time of one prefill and of one
+decode step (profiler, two runs each), and stops.  These three modes call
+only the public entry points (the kernels build at first use), so that a
+copy of this script in an earlier checkout (``git archive`` of it
+unpacked under ``build/``) measures that checkout's kernels the same way:
+to compare two trees, run the script from each in turns in one call.
 The qwen phases run first; their model is freed before the 32.8 GB MoE
 model is drawn on the card, and that before the SSM models.
 """
@@ -159,6 +176,7 @@ INT8_STEP = 1.01 / 127                      # int8 bound per unit push
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12                    # the main path runs in bf16
 FP32_FLOP_PER_S = 67e12                     # f32 outside the tensor cores
+TF32_FLOP_PER_S = 495e12                    # TF32 on the tensor cores
 
 FLASH_CASES = [
     # B, Sq, Sk, H, K, D, causal, q_offset
@@ -186,11 +204,20 @@ DECODE_CASES = [
     # B, S, H, K, D, lengths
     (4, 544, 16, 16, 64, (513, 530, 543, 544)),  # the serving decode
     (4, 544, 16, 16, 128, (513, 530, 543, 544)),  # deepseek-moe-16b's
+    (4, 544, 32, 32, 64, (1, 128, 129, 544)),    # zamba2-1.2b's shared block
     (3, 300, 16, 4, 128, (1, 150, 300)),         # GQA G=4, D 128
     (2, 1000, 8, 1, 64, (999, 37)),              # MQA, long cache
     (2, 64, 4, 2, 16, (1, 64)),
     (5, 100, 8, 8, 32, (3, 33, 64, 65, 100)),
+    (3, 400, 16, 8, 64, (2, 128, 129)),          # G=2, split edges
+    (2, 777, 36, 4, 128, (777, 300)),            # G=9: two head groups
 ]
+# the bf16 parity case whose error each timing row of K6 reports
+DECODE_ROWS = {
+    (4, 544, 16, 64): "decode_attention",
+    (4, 544, 16, 128): f"decode_attention[{MOE_ARCH}]",
+    (4, 544, 32, 64): f"decode_attention[{SSM_ARCHS[1]}]",
+}
 
 
 def log(msg: str) -> None:
@@ -228,20 +255,16 @@ def device_events(prof):
     return [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
 
 
-def device_ms(fn, iters: int = 20, warmup: int = 5,
-              attempts: int = 3) -> float:
-    """Device time per call: every kernel ``fn`` launches, summed from
-    torch.profiler's CUDA trace — the work's own time, whatever the host's
-    launch overhead between calls.  The profiler loses kernel records at
-    times (most traces of 20 calls did, late in a full run, when they
-    recorded from their first call), which gives too small a time per
-    call: so each trace opens with a round of ``iters`` calls whose
-    records are discarded (the profiler's own warm-up step), and a trace
-    counts only when it holds device events and every kernel's records
-    are a multiple of ``iters``.  Another is taken again, up to
-    ``attempts`` times; when none came back whole (on one card every trace
-    of one row did), the time is taken by CUDA events instead
-    (``queued_ms``) and logged as such."""
+def _trace(fn, iters: int = 20, warmup: int = 5, attempts: int = 3):
+    """The device events of ``iters`` calls of ``fn`` in torch.profiler's
+    CUDA trace.  The profiler loses kernel records at times (most traces of
+    20 calls did, late in a full run, when they recorded from their first
+    call), which would give too small a time and too few kernels per call:
+    so each trace opens with a round of ``iters`` calls whose records are
+    discarded (the profiler's own warm-up step), and a trace counts only
+    when it holds device events and every kernel's records are a multiple
+    of ``iters``.  Another is taken, up to ``attempts`` times; None when
+    none came back whole."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
     for _ in range(warmup):
@@ -259,13 +282,95 @@ def device_ms(fn, iters: int = 20, warmup: int = 5,
         events = device_events(prof)
         counts = [e.count for e in events]
         if events and all(c % iters == 0 for c in counts):
-            return sum(e.self_device_time_total for e in events) / iters / 1e3
+            return events
         log(f"  (trace {attempt + 1} of {attempts} incomplete: "
             f"{sum(counts)} device records for {iters} calls)")
+    return None
+
+
+def _profiled_ms(fn, iters: int = 20, warmup: int = 5, attempts: int = 3):
+    """Device time per call: every kernel ``fn`` launches, summed from a
+    whole trace (``_trace``) — the work's own time, whatever the host's
+    launch overhead between calls; None when no trace came back whole."""
+    events = _trace(fn, iters, warmup, attempts)
+    if events is None:
+        return None
+    return sum(e.self_device_time_total for e in events) / iters / 1e3
+
+
+def device_ms(fn, iters: int = 20, warmup: int = 5,
+              attempts: int = 3) -> float:
+    """Device time per call from the profiler (``_profiled_ms``); when no
+    trace came back whole (on one card every trace of one row did), the
+    time is taken by CUDA events instead (``queued_ms``) and logged as
+    such."""
+    ms = _profiled_ms(fn, iters, warmup, attempts)
+    if ms is not None:
+        return ms
     ms, how = queued_ms(fn, iters)
     log(f"  (device time from CUDA events instead, {how}: "
         f"{ms * 1e3:.2f}us per call)")
     return ms
+
+
+def device_times(fns, iters: int = 20) -> tuple:
+    """Device time per call of each of ``fns`` by one method: the
+    profiler's (``_profiled_ms``) for all, or, when any of them gets no
+    whole trace, CUDA events (``queued_ms``) for all, so that a kernel and
+    its yardstick are timed alike.  Returns (times in ms, method)."""
+    times = [_profiled_ms(fn, iters) for fn in fns]
+    if all(t is not None for t in times):
+        return times, "profiler"
+    times = [queued_ms(fn, iters)[0] for fn in fns]
+    log(f"  (a trace was not whole: {len(fns)} times from CUDA events "
+        f"instead, {[round(t * 1e3, 2) for t in times]}us per call)")
+    return times, "events"
+
+
+def kernels_per_call(fn, iters: int = 20, attempts: int = 3):
+    """Kernel name (cut to 60 characters) -> (records, device us) per call
+    in a whole trace of ``fn`` (``_trace``); None when no trace came back
+    whole."""
+    events = _trace(fn, iters, attempts=attempts)
+    if events is None:
+        return None
+    return {e.key[:60]: (e.count / iters,
+                         round(e.self_device_time_total / iters, 2))
+            for e in events}
+
+
+CU_GRAPH_NODE_TYPE_KERNEL = 0          # CUgraphNodeType, cuda.h
+
+
+def graph_node_types(fn) -> list:
+    """The type of each node of a CUDA graph captured from one call of
+    ``fn`` (after a call on the capture stream), read through the driver
+    API: the work one call queues, whatever the profiler records."""
+    import ctypes
+    import torch
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph, stream=s):
+        fn()
+    cu = ctypes.CDLL("libcuda.so.1")
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    if cu.cuGraphGetNodes(handle, None, ctypes.byref(n)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    cu.cuGraphGetNodes(handle, nodes, ctypes.byref(n))
+    types = []
+    for node in nodes:
+        t = ctypes.c_int(-1)
+        if cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(t)) != 0:
+            raise RuntimeError("cuGraphNodeGetType failed")
+        types.append(t.value)
+    graph.reset()
+    return types
 
 
 def queued_ms(fn, iters: int = 20, attempts: int = 3) -> tuple:
@@ -343,26 +448,30 @@ def phase_build():
                                line.split("'")[1])
             elif "registers" in line:
                 log(f"  ptxas {name}: {entry[:60]}: {line.split(':', 1)[1].strip()}")
-            elif "spill" in line and " 0 bytes spill stores" not in line:
-                log(f"  ptxas {name}: {entry[:60]}: SPILLS {line.strip()}")
+            elif "stack frame" in line and not \
+                    line.strip().startswith("0 bytes stack frame"):
+                log(f"  ptxas {name}: {entry[:60]}: LOCAL MEMORY {line.strip()}")
             elif "warning" in line.lower() or "Performance" in line:
                 log(f"  nvcc {name}: {line.strip()[:240]}")
     # the bf16 flash kernel and K7's prefill kernel must run on the tensor
-    # cores: count the wgmma (HGMMA) and mma.sync (HMMA) instructions in
-    # each library's SASS
+    # cores through wgmma, K8's bf16 C·Bᵀ through mma.sync or wgmma: count
+    # the wgmma (HGMMA) and mma.sync (HMMA) instructions in each library's
+    # SASS
     cuobjdump = Path(_build.nvcc_path()).with_name("cuobjdump")
     if not cuobjdump.exists():
         log("  sass: no cuobjdump in the toolkit; tensor-core use not counted")
         return
-    for name in ("flash_attention", "moe_gmm"):
+    for name, wgmma_only in (("flash_attention", True), ("moe_gmm", True),
+                             ("ssd_scan", False)):
         sass = subprocess.run(
             [str(cuobjdump), "-sass", str(_build.library_path(name))],
             capture_output=True, text=True, timeout=120, check=True).stdout
         n_hgmma = len(re.findall(r"\bHGMMA\.", sass))
         n_hmma = len(re.findall(r"\bHMMA\.", sass))
         log(f"  sass {name}: {n_hgmma} HGMMA, {n_hmma} HMMA instructions")
-        if n_hgmma == 0:
-            raise AssertionError(f"{name}: no HGMMA in its SASS")
+        if n_hgmma == 0 and (wgmma_only or n_hmma == 0):
+            raise AssertionError(f"{name}: no tensor-core instruction of the "
+                                 f"kind it must have in its SASS")
 
 
 def phase_parity() -> dict:
@@ -375,7 +484,7 @@ def phase_parity() -> dict:
     torch.backends.cudnn.allow_tf32 = False
     g = torch.Generator(device="cuda").manual_seed(SEED)
     dev = "cuda"
-    errs = {"flash_attention": 0.0, "decode_attention": 0.0}
+    errs = {}
     log("parity: kernels against their plain versions on the card")
     for dtype in (torch.bfloat16, torch.float32):
         tol = TOL[str(dtype).split(".")[1]]
@@ -407,8 +516,8 @@ def phase_parity() -> dict:
             torch.cuda.synchronize()
             err = check_close(f"decode {dtype} B{B} S{S} H{H} K{K} D{D} "
                               f"lengths={lens}", got, want, tol)
-            if dtype == torch.bfloat16 and (B, S, H, D) == (BATCH, PROMPT + NEW_TOKENS, 16, 64):
-                errs["decode_attention"] = err
+            if dtype == torch.bfloat16 and (B, S, H, D) in DECODE_ROWS:
+                errs[DECODE_ROWS[(B, S, H, D)]] = err
     return errs
 
 
@@ -709,23 +818,24 @@ def _flash_row(name, B, S, H, K, D, launches, errs, g) -> tuple:
     back_to_back = call_ms(kernel)
     queued, how = queued_ms(kernel)
     log(f"  {name}: {queued * 1e3:.2f}us per call by CUDA events, {how}")
+    (k_ms, lib_ms), how = device_times(
+        [kernel, lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                        is_causal=True)])
     row = _row(
         name, "src/repro_torch/kernels/csrc/flash_attention.cu",
         "src/repro/kernels/flash_attention/kernel.py:84", launches, errs,
-        device_ms(kernel),
-        device_ms(lambda: attention_ref(q, k, v, causal=True), iters=5),
-        device_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt,
-                                                         is_causal=True)),
-        nbytes, flops)
-    return row, back_to_back
+        k_ms, device_ms(lambda: attention_ref(q, k, v, causal=True), iters=5),
+        lib_ms, nbytes, flops)
+    return row, back_to_back, how
 
 
-def _log_flash_row(r, back_to_back, shape) -> None:
+def _log_flash_row(r, back_to_back, how, shape) -> None:
     log(f"timing, K5 at {shape}: {r['ms'] * 1e3:.1f}us device, "
         f"{back_to_back * 1e3:.1f}us back-to-back, bound "
         f"{r['bound_ms'] * 1e3:.2f}us ({r['bound_by']}), plain "
         f"{r['plain_ms'] * 1e3:.1f}us, library {r['library_ms'] * 1e3:.1f}us "
-        f"(SDPA), launches {r['launches']}")
+        f"(SDPA; kernel and SDPA by the {how}), launches "
+        f"{r['launches']}")
 
 
 def phase_timing_flash(res, launches: int, errs) -> list:
@@ -737,59 +847,102 @@ def phase_timing_flash(res, launches: int, errs) -> list:
         f"flash_attention[{cfg.name}]"
     H, K, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     g = torch.Generator(device="cuda").manual_seed(SEED + 9)
-    row, back_to_back = _flash_row(name, BATCH, PROMPT, H, K, D,
-                                   {name: launches}, errs, g)
-    _log_flash_row(row, back_to_back, f"{cfg.name}'s prefill (B {BATCH} "
-                   f"S {PROMPT} H {H} K {K} D {D})")
+    row, back_to_back, how = _flash_row(name, BATCH, PROMPT, H, K, D,
+                                        {name: launches}, errs, g)
+    _log_flash_row(row, back_to_back, how, f"{cfg.name}'s prefill (B "
+                   f"{BATCH} S {PROMPT} H {H} K {K} D {D})")
+    return [row]
+
+
+def _decode_operands(g, B, S, H, K, D):
+    """The last decode step of one layer: bf16 q, a cache of S positions
+    with S - 1 valid in every row, the lengths, and SDPA's operands (the
+    heads' axis second, a boolean mask)."""
+    import torch
+    bf16, dev = torch.bfloat16, "cuda"
+    q = torch.randn(B, H, D, generator=g, device=dev).to(bf16)
+    kc = torch.randn(B, S, K, D, generator=g, device=dev).to(bf16)
+    vc = torch.randn(B, S, K, D, generator=g, device=dev).to(bf16)
+    lengths = torch.full((B,), S - 1, dtype=torch.int32, device=dev)
+    mask = (torch.arange(S, device=dev)[None, :] < lengths[:, None])[:, None, None]
+    sdpa = (q[:, :, None], kc.transpose(1, 2).contiguous(),
+            vc.transpose(1, 2).contiguous(), mask)
+    return q, kc, vc, lengths, sdpa
+
+
+def one_decode_kernel(kernel) -> str:
+    """Holds that one call of K6 launches one kernel, ``decode_kernel``,
+    and no other (no combine kernel): in a whole profiler trace, exactly
+    one record a call of that kernel and none of another; and in a CUDA
+    graph of one call, one node, a kernel.  Returns what it saw."""
+    per_call = kernels_per_call(kernel)
+    nodes = graph_node_types(kernel)
+    if per_call is not None and (
+            len(per_call) != 1 or "decode_kernel" not in next(iter(per_call))
+            or next(iter(per_call.values()))[0] != 1.0):
+        raise AssertionError(f"K6 launched {per_call} per call, not one "
+                             f"decode_kernel")
+    if nodes != [CU_GRAPH_NODE_TYPE_KERNEL]:
+        raise AssertionError(f"K6's graph of one call has nodes of types "
+                             f"{nodes}, not one kernel")
+    return (f"{per_call if per_call is not None else 'no whole trace'} in "
+            f"the profiler, 1 node in a CUDA graph")
+
+
+def _decode_row(name, B, S, H, K, D, launches, errs, g) -> tuple:
+    """K6 at one layer's last decode step (bf16, a cache of S positions,
+    S - 1 valid): its kernels-line row (kernel and SDPA timed by one
+    method, plain version, bound), its back-to-back call time, the method,
+    and the kernels one call launched (``one_decode_kernel``)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      decode_attention_ref)
+    q, kc, vc, lengths, (qt, kt, vt, mask) = _decode_operands(g, B, S, H, K, D)
+    n = S - 1
+    nbytes = 2 * (q.numel() + 2 * B * n * K * D + q.numel())
+    flops = 4 * D * B * H * n
+    kernel = lambda: decode_attention(q, kc, vc, lengths)
+    back_to_back = call_ms(kernel)
+    (k_ms, lib_ms), how = device_times(
+        [kernel, lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                        attn_mask=mask)])
+    row = _row(
+        name, "src/repro_torch/kernels/csrc/decode_attention.cu",
+        "src/repro/kernels/decode_attention/kernel.py:69", launches, errs,
+        k_ms, device_ms(lambda: decode_attention_ref(q, kc, vc, lengths)),
+        lib_ms, nbytes, flops)
+    return row, back_to_back, how, one_decode_kernel(kernel)
+
+
+def phase_timing_decode(res, launches: int, errs) -> list:
+    """K6 at a served model's last decode step (batch 4, a cache of
+    prompt + new tokens), named by the model, with the launches of its
+    main-path run."""
+    import torch
+    cfg = res["cfg"]
+    name = "decode_attention" if cfg.name == ARCH else \
+        f"decode_attention[{cfg.name}]"
+    H, K, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    g = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    row, back_to_back, how, per_call = _decode_row(
+        name, BATCH, PROMPT + NEW_TOKENS, H, K, D, {name: launches}, errs, g)
+    log(f"timing, K6 at {cfg.name}'s last decode step (B {BATCH} S "
+        f"{PROMPT + NEW_TOKENS} H {H} K {K} D {D}): {row['ms'] * 1e3:.2f}us "
+        f"device, {back_to_back * 1e3:.1f}us back-to-back, bound "
+        f"{row['bound_ms'] * 1e3:.2f}us ({row['bound_by']}), plain "
+        f"{row['plain_ms'] * 1e3:.1f}us, library "
+        f"{row['library_ms'] * 1e3:.2f}us (SDPA, masked; kernel and SDPA by "
+        f"the {how}), launches {row['launches']}; kernels per call: "
+        f"{per_call}")
     return [row]
 
 
 def phase_timing(res, launches, errs) -> list:
-    import torch
-    import torch.nn.functional as F
-    from repro_torch.kernels.decode_attention import (decode_attention,
-                                                      decode_attention_ref)
-    cfg = res["cfg"]
-    B, S, H, K, D = BATCH, PROMPT, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    bf16, dev = torch.bfloat16, "cuda"
-    g = torch.Generator(device=dev).manual_seed(SEED + 1)
-    rows = []
-
-    # flash: the prefill call of one layer
-    row, back_to_back = _flash_row("flash_attention", B, S, H, K, D,
-                                   launches, errs, g)
-    rows.append(row)
-    back_to_back = {"flash_attention": back_to_back}
-
-    # decode: the last decode step of one layer (cache of PROMPT+NEW_TOKENS)
-    Smax, n = PROMPT + NEW_TOKENS, PROMPT + NEW_TOKENS - 1
-    qd = torch.randn(B, H, D, generator=g, device=dev).to(bf16)
-    kc = torch.randn(B, Smax, K, D, generator=g, device=dev).to(bf16)
-    vc = torch.randn(B, Smax, K, D, generator=g, device=dev).to(bf16)
-    lengths = torch.full((B,), n, dtype=torch.int32, device=dev)
-    mask = (torch.arange(Smax, device=dev)[None, :] < lengths[:, None])[:, None, None]
-    qdt, kct, vct = qd[:, :, None], kc.transpose(1, 2).contiguous(), \
-        vc.transpose(1, 2).contiguous()
-    nbytes = 2 * (qd.numel() + 2 * B * n * K * D + qd.numel())
-    flops = 4 * D * B * H * n
-    kernel = lambda: decode_attention(qd, kc, vc, lengths)
-    back_to_back["decode_attention"] = call_ms(kernel)
-    rows.append(_row(
-        "decode_attention", "src/repro_torch/kernels/csrc/decode_attention.cu",
-        "src/repro/kernels/decode_attention/kernel.py:69", launches, errs,
-        device_ms(kernel),
-        device_ms(lambda: decode_attention_ref(qd, kc, vc, lengths)),
-        device_ms(lambda: F.scaled_dot_product_attention(qdt, kct, vct,
-                                                         attn_mask=mask)),
-        nbytes, flops))
-    log("timing (device time per call from the profiler; back-to-back call "
-        "time from CUDA events):")
-    for r in rows:
-        log(f"  {r['name']}: {r['ms'] * 1e3:.1f}us device, "
-            f"{back_to_back[r['name']] * 1e3:.1f}us back-to-back, bound "
-            f"{r['bound_ms'] * 1e3:.2f}us ({r['bound_by']}), plain "
-            f"{r['plain_ms'] * 1e3:.1f}us, library {r['library_ms'] * 1e3:.1f}us")
+    """K5 and K6 at qwen1.5-0.5b's prefill and last decode step."""
+    rows = phase_timing_flash(res, launches["flash_attention"], errs)
+    rows += phase_timing_decode(res, launches["decode_attention"], errs)
     return rows
+
 
 def check_bound(name: str, got, want, bound: float) -> float:
     """Max |got - want|; raises above ``bound`` or on a non-finite value."""
@@ -1553,18 +1706,20 @@ def phase_gmm_ab(errs) -> None:
         forced(x, weight(2048, 1408), gs, f"T {T} d 2048 f 1408")
 
 
-def _serve_once(model, params, tokens,
-                decode_ctx=contextlib.nullcontext) -> tuple:
+def _serve_once(model, params, tokens, decode_ctx=contextlib.nullcontext,
+                prefill_ctx=contextlib.nullcontext) -> tuple:
     """Prefill + greedy decode of the kernel path: (prefill s, decode s);
-    ``decode_ctx`` wraps the decode loop (a profiler)."""
+    ``prefill_ctx`` wraps the prefill and ``decode_ctx`` the decode loop
+    (a profiler)."""
     import torch
     with torch.no_grad(), contextlib.ExitStack() as stack:
         cache = model.init_cache(BATCH, PROMPT + NEW_TOKENS, "cuda")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        lg, cache, n = model.prefill(params, tokens, cache)
-        tok = lg.argmax(-1).to(torch.int32)
-        torch.cuda.synchronize()
+        with prefill_ctx():
+            lg, cache, n = model.prefill(params, tokens, cache)
+            tok = lg.argmax(-1).to(torch.int32)
+            torch.cuda.synchronize()
         stack.enter_context(decode_ctx())
         t1 = time.perf_counter()
         for i in range(NEW_TOKENS - 1):
@@ -1748,16 +1903,21 @@ def phase_ssm_sublayers(res) -> None:
 def phase_timing_ssd(res, launches: int, errs) -> list:
     """K8 at an SSM model's prefill shape (one Mamba layer's call: bf16
     x, B, C, zero initial state, the models' own decays): device time
-    (profiler), plain version, bound.  No one PyTorch call computes the
-    SSD scan, so there is no library time.  The bound's operations count
-    the causal half (j <= i) of the intra-chunk products and what the
-    function needs of each: C·Bᵀ depends on the group, not the head, so
-    once per (batch, group, chunk) on B and C's own type (bf16 here: the
-    tensor cores' rate); its product with dt·x and the two state terms,
-    whose other operand is f32, per (batch, head, chunk) at the f32
-    rate."""
+    (profiler), plain version, bound, and the launcher's grids.  No one
+    PyTorch call computes the SSD scan, so there is no library time.  The
+    bound's operations count the causal half (j <= i) of the intra-chunk
+    products and what the function needs of each: C·Bᵀ depends on the
+    group, not the head, so once per (batch, group, chunk) on B and C's
+    own type (bf16 here: the tensor cores' rate); its product with dt·x
+    and the two state terms, whose other operand is f32, per (batch, head,
+    chunk).  Those f32 products run on the tensor cores as TF32 products
+    of hi and lo parts, which keep f32's accuracy, and count at the TF32
+    rate as many times as the kernel multiplies: three for the
+    intra-chunk term (both operands f32), and for the two state terms
+    three with f32 B and C, two with bf16 (exact in TF32: no lo part)."""
     import torch
     from repro_torch.kernels.ssd_scan import ssd
+    from repro_torch.kernels.ssd_scan.ops import grids as ssd_grids
     g = torch.Generator(device="cuda").manual_seed(SEED + 7)
     cfg = res["cfg"]
     H, P, G, N = cfg.ssm_nheads, cfg.ssm_headdim, cfg.ssm_ngroups, cfg.ssm_state
@@ -1770,8 +1930,11 @@ def phase_timing_ssd(res, launches: int, errs) -> list:
               + 2 * x.numel() + 4 * BATCH * H * P * N)  # y, final state
     pairs = Q * (Q + 1) // 2
     flops_cb = BATCH * G * nc * 2 * pairs * N
-    flops_f32 = BATCH * H * nc * (2 * pairs * P + 4 * Q * N * P)
-    cb_rate = BF16_FLOP_PER_S if B.dtype == torch.bfloat16 else FP32_FLOP_PER_S
+    flops_intra = BATCH * H * nc * 2 * pairs * P      # (C·Bᵀ ⊙ L)·(dt·x)
+    flops_state = BATCH * H * nc * 4 * Q * N * P      # C·stateᵀ, the update
+    bf16 = B.dtype == torch.bfloat16
+    cb_rate = BF16_FLOP_PER_S if bf16 else FP32_FLOP_PER_S
+    products = 3 * flops_intra + (2 if bf16 else 3) * flops_state
     name = "ssd_scan" if cfg.name == SSM_ARCHS[0] else f"ssd_scan[{cfg.name}]"
     kernel = lambda: ssd(x, dt, A, B, C, D, chunk=cfg.ssm_chunk)
     row = _row(name, "src/repro_torch/kernels/csrc/ssd_scan.cu",
@@ -1780,15 +1943,129 @@ def phase_timing_ssd(res, launches: int, errs) -> list:
                device_ms(lambda: ssd(x, dt, A, B, C, D, chunk=cfg.ssm_chunk,
                                      backend="torch"), iters=5),
                None, nbytes, [(flops_cb, cb_rate),
-                              (flops_f32, FP32_FLOP_PER_S)])
+                              (products, TF32_FLOP_PER_S)])
     log(f"timing, K8 at {cfg.name}'s prefill (Bt {BATCH} S {PROMPT} H {H} "
         f"P {P} N {N} Q {Q}; C·Bᵀ {flops_cb / 1e9:.3f} GFLOP, f32 "
-        f"{flops_f32 / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB): "
+        f"{(flops_intra + flops_state) / 1e9:.2f} GFLOP ({products / 1e9:.2f}"
+        f" as TF32 products), {nbytes / 1e6:.1f} MB; blocks (C·Bᵀ, state, "
+        f"pass, outputs) {ssd_grids(BATCH, PROMPT, H, P, G, N, Q)}): "
         f"{row['ms'] * 1e3:.1f}us device, back-to-back "
         f"{call_ms(kernel) * 1e3:.1f}us, bound {row['bound_ms'] * 1e3:.1f}us "
         f"({row['bound_by']}), plain {row['plain_ms'] * 1e3:.1f}us, library "
         f"none, launches {row['launches']}")
     return [row]
+
+
+def phase_profile() -> None:
+    """Device time of each served model's prefill and of its decode steps:
+    the launcher's main path at full width (as phases 3, 8 and 11 run it,
+    without their checks), then one warm run, then two profiled prefills
+    and two profiled 31-step decode loops, every kernel's device time
+    summed (torch.profiler).  It calls only the launcher and the models,
+    so that a copy of this script in an earlier checkout measures that
+    checkout's kernels the same way."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch import serve
+    for arch in (ARCH, MOE_ARCH, *SSM_ARCHS):
+        res = serve.main(["--arch", arch, "--batch", str(BATCH),
+                          "--prompt-len", str(PROMPT), "--new-tokens",
+                          str(NEW_TOKENS), "--device", "cuda", "--seed",
+                          str(SEED)])
+        model, params, tokens = res["model"], res["params"], res["tokens"]
+        _serve_once(model, params, tokens)
+        out = {}
+        for part, steps in (("prefill", 1), ("decode", NEW_TOKENS - 1)):
+            for _ in range(2):
+                prof = profile(activities=[ProfilerActivity.CUDA])
+                _serve_once(model, params, tokens,
+                            **{f"{part}_ctx": lambda: prof})
+                busy_us = sum(e.self_device_time_total
+                              for e in device_events(prof))
+                out.setdefault(part, []).append(busy_us / 1e3 / steps)
+        log(f"profile {arch}: device ms per prefill "
+            f"{[round(t, 3) for t in out['prefill']]}, per decode step "
+            f"{[round(t, 3) for t in out['decode']]}")
+        del res, model, params, tokens
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+DECODE_SHAPES = [(ARCH, 16, 16, 64), (MOE_ARCH, 16, 16, 128),
+                 (SSM_ARCHS[1], 32, 32, 64)]   # served: name, H, K, D
+DECODE_COLD = 8        # caches taken in turn for an L2-cold time (71-142 MB)
+
+
+def phase_decode_ab() -> None:
+    """K6 alone at the three served decode shapes, held against its plain
+    version and timed beside SDPA by one method in turns (kernel, SDPA,
+    SDPA, kernel), once on one cache (L2-warm, as the kernel table's rows)
+    and once over DECODE_COLD caches taken in turn (each call finds its
+    cache in HBM, as the layers of a decode step do); and the kernels one
+    call launches.  It calls only the public wrappers, so that a copy of
+    this script in an earlier checkout times that checkout's K6."""
+    import itertools
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      decode_attention_ref)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    S = PROMPT + NEW_TOKENS
+    log("timing, K6 alone (device time per call; kernel, SDPA in turns):")
+    for arch, H, K, D in DECODE_SHAPES:
+        ops = [_decode_operands(g, BATCH, S, H, K, D)
+               for _ in range(DECODE_COLD)]
+        q, kc, vc, lengths, (qt, kt, vt, mask) = ops[0]
+        check_close(f"K6 {arch}", decode_attention(q, kc, vc, lengths),
+                    decode_attention_ref(q, kc, vc, lengths), TOL["bfloat16"])
+        kernel = lambda: decode_attention(q, kc, vc, lengths)
+        sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                      attn_mask=mask)
+        nxt = itertools.cycle(ops).__next__
+        cold_kernel = lambda: decode_attention(*nxt()[:4])
+        cold_sdpa = lambda: (lambda o: F.scaled_dot_product_attention(
+            *o[4][:3], attn_mask=o[4][3]))(nxt())
+        warm, how = device_times([kernel, sdpa, sdpa, kernel])
+        cold, cold_how = device_times([cold_kernel, cold_sdpa, cold_sdpa,
+                                       cold_kernel])
+        us = lambda t: (f"kernel {t[0] * 1e3:.2f}/{t[3] * 1e3:.2f}, sdpa "
+                        f"{t[1] * 1e3:.2f}/{t[2] * 1e3:.2f}")
+        nbytes = 2 * (2 * q.numel() + 2 * BATCH * (S - 1) * K * D)
+        log(f"  {arch} (B {BATCH} S {S} H {H} K {K} D {D}; bound "
+            f"{nbytes / HBM_BYTES_PER_S * 1e6:.2f}us): warm us {us(warm)} "
+            f"({how}); cold us {us(cold)} ({cold_how}); kernels per call "
+            f"{kernels_per_call(kernel)}")
+
+
+def phase_ssd_ab() -> None:
+    """K8 alone at both SSM prefill shapes (bf16, the models' decays, zero
+    initial state, as phase 13 times it), held against its plain version
+    and timed twice, with the time of each kernel of a call.  It calls only
+    the public wrapper, so that a copy of this script in an earlier
+    checkout times that checkout's K8."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssd_scan import ssd, ssd_chunked
+    g = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    log("timing, K8 alone (device time per call, twice):")
+    for arch in SSM_ARCHS:
+        cfg = get_config(arch)
+        H, P, G, N = (cfg.ssm_nheads, cfg.ssm_headdim, cfg.ssm_ngroups,
+                      cfg.ssm_state)
+        Q = min(cfg.ssm_chunk, _ssd_chunk(PROMPT))
+        x, dt, A, B, C, D, _ = _ssd_inputs(g, BATCH, PROMPT, H, P, G, N,
+                                           torch.bfloat16, "model", False)
+        init = torch.zeros(BATCH, H, P, N, device="cuda")
+        want = ssd_chunked(x, dt, A, B, C, D, init, Q)
+        got = ssd(x, dt, A, B, C, D, chunk=cfg.ssm_chunk)
+        check_close(f"K8 {arch} y", got[0], want[0], SSD_TOL["bfloat16"])
+        check_close(f"K8 {arch} final state", got[1], want[1],
+                    SSD_TOL["bfloat16"])
+        kernel = lambda: ssd(x, dt, A, B, C, D, chunk=cfg.ssm_chunk)
+        t, how = device_times([kernel, kernel])
+        log(f"  {arch} (Bt {BATCH} S {PROMPT} H {H} P {P} G {G} N {N} Q "
+            f"{Q}): {t[0] * 1e3:.1f}/{t[1] * 1e3:.1f}us ({how}); kernels "
+            f"(per call, us): {kernels_per_call(kernel)}")
 
 
 def main(argv) -> int:
@@ -1806,13 +2083,36 @@ def main(argv) -> int:
               f"checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
-    parity_only = argv == ["parity"]      # a new kernel's first, short run
-    flash_only = argv == ["flash"]        # K5 alone: A/B of its designs
-    gmm_only = argv == ["gmm"]            # K7 alone: A/B of its designs
+    mode = argv[0] if argv else None
+    if mode not in (None, "parity", "flash", "gmm", "decode", "ssd",
+                    "profile") or len(argv) > 1:
+        print(f"chip_smoke: arguments {argv}: none, or one of parity, flash, "
+              f"gmm, decode, ssd, profile", file=sys.stderr)
+        return 2
+    parity_only = mode == "parity"        # a new kernel's first, short run
+    flash_only = mode == "flash"          # K5 alone: A/B of its designs
+    gmm_only = mode == "gmm"              # K7 alone: A/B of its designs
     t0 = time.perf_counter()
     smi = nvidia_smi()
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; "
         f"{torch.cuda.get_device_name(0)}")
+    # K6 or K8 alone, and the profile, through the public entry points
+    # only (kernels build at first use), so that a copy of this script run
+    # from an earlier checkout measures that checkout's kernels
+    if mode == "profile":
+        phase_profile()
+        log(smi)
+        return 0
+    if mode == "decode":
+        phase_parity()
+        phase_decode_ab()
+        log(smi)
+        return 0
+    if mode == "ssd":
+        phase_parity_ssd()
+        phase_ssd_ab()
+        log(smi)
+        return 0
     phase_build()
     errs = phase_parity()
     if flash_only:
@@ -1853,6 +2153,8 @@ def main(argv) -> int:
     del routes
     rows += phase_timing_gmm(moe_res, moe_launches, errs)
     rows += phase_timing_flash(moe_res, moe_launches["flash_attention"], errs)
+    rows += phase_timing_decode(moe_res, moe_launches["decode_attention"],
+                                errs)
     phase_warm_serve(moe_res, decode_only=True)
     del moe_res                   # the MoE model leaves the card
     gc.collect()
@@ -1866,6 +2168,8 @@ def main(argv) -> int:
         if ssm_launches["flash_attention"]:      # the hybrid's shared block
             rows += phase_timing_flash(res, ssm_launches["flash_attention"],
                                        errs)
+            rows += phase_timing_decode(res, ssm_launches["decode_attention"],
+                                        errs)
         phase_warm_serve(res, decode_only=True)
         del res
         gc.collect()

@@ -3,14 +3,19 @@ the CPU.
 
 Counterpart of ``repro.kernels.decode_attention.ops.decode_attention``.  A
 CUDA tensor goes to ``csrc/decode_attention.cu`` (the port of the Pallas
-kernel, as split-KV flash-decoding); a CPU tensor, or ``backend="torch"``,
+kernel, as split-KV flash-decoding in one launch: the last block of each
+(batch, KV head) to finish reduces the splits); a CPU tensor, or
+``backend="torch"``,
 to :func:`ref.decode_attention_ref`.  The lengths stay on the device: the
-wrapper never reads them, so a decode step has no host sync.
+wrapper never reads them, so a decode step has no host sync, and the
+launch is the same at every step (graph-safe: the kernel leaves its
+counters at 0).
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 
 import torch
 
@@ -20,11 +25,14 @@ from repro_torch.kernels.common import (DTYPE_CODES, HEAD_DIMS,
                                         dispatch, round_up)
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 
-LAUNCHES = LaunchCounter()  # wrapper calls that launched the kernels
+LAUNCHES = LaunchCounter()  # wrapper calls that launched the kernel
 
-CHUNK = 32        # keys per chunk in the kernel; a split is a multiple of it
-BLOCKS_PER_SM = 4  # split the cache until the grid has this many blocks per SM
-_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+WARPS = 4           # warps of a block in the kernel; each streams its own tiles
+TILE_BYTES = 2048   # K rows of one warp's tile (and as many of V)
+MAX_HEADS = 8       # query heads one block scores (1, 2, 4 or 8)
+SPLIT_TILES = 8     # a split: at most 2 tiles a warp (16 KB of K at D 64)
+MAX_SPLITS = 128    # the last block of a pair reduces at most this many
+_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
              + [ctypes.c_float, ctypes.c_void_p])
 
 
@@ -43,14 +51,58 @@ def _sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
-def split_plan(B: int, K: int, S: int, n_sm: int) -> tuple:
-    """(split_len, n_splits) for a cache of S positions: enough splits that
-    B*K*n_splits blocks fill ``BLOCKS_PER_SM`` blocks per SM, each split a
-    whole number of chunks.  Depends on the cache capacity only, never on
-    the lengths, which stay on the card."""
-    want = min(max(cdiv(BLOCKS_PER_SM * n_sm, B * K), 1), cdiv(S, CHUNK))
-    split_len = round_up(cdiv(S, want), CHUNK)
-    return split_len, cdiv(S, split_len)
+def heads_per_block(G: int) -> int:
+    """Query heads one block scores: the least of 1, 2, 4, 8 that holds
+    the G heads of a KV head, else 8 (then ceil(G/8) blocks share it)."""
+    return next((gt for gt in (1, 2, 4) if G <= gt), MAX_HEADS)
+
+
+def tile_keys(D: int, itemsize: int) -> int:
+    """Keys in one warp's tile: 2 KB of K rows."""
+    return TILE_BYTES // (D * itemsize)
+
+
+def split_plan(B: int, rows: int, S: int, n_sm: int, tile: int) -> tuple:
+    """(split_len, n_splits) for a cache of S positions, ``rows`` blocks
+    per sequence (KV heads times head groups) and tiles of ``tile`` keys:
+    splits of ``SPLIT_TILES`` tiles, or fewer (a whole number per warp)
+    where the grid would not give every SM a block, and at most
+    ``MAX_SPLITS`` of them.  Depends on the cache capacity and the SM count
+    only, never on the lengths, which stay on the card."""
+    n_tiles = cdiv(S, tile)
+    want = max(cdiv(n_sm, B * rows), 1)          # splits for a block per SM
+    tiles = min(SPLIT_TILES, round_up(cdiv(n_tiles, want), WARPS))
+    tiles = min(max(tiles, cdiv(n_tiles, MAX_SPLITS)), n_tiles)
+    return tiles * tile, cdiv(n_tiles, tiles)
+
+
+_COUNTERS: dict = {}    # (device index, stream) -> its counters
+_OUTGROWN: list = []    # sets replaced by larger ones, never freed
+_COUNTERS_LOCK = threading.Lock()
+
+
+def _counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    """The last-block counters of (``device``, ``stream``): zeroed once
+    when made, and left at 0 by every call, so no call zeroes them (that
+    would be a launch).  Two calls that run at once on two streams never
+    share a set.  A set that a call outgrows is kept in ``_OUTGROWN``, not
+    freed, since a CUDA graph captured earlier may still count on it.  A
+    captured call uses its capture stream's set: replay the graph on that
+    stream, or at least never at once with another call that uses the
+    same set (two graphs captured on one stream share it)."""
+    key = (device.index, stream)
+    with _COUNTERS_LOCK:
+        c = _COUNTERS.get(key)
+        if c is None or c.numel() < n:
+            if torch.cuda.is_current_stream_capturing():   # its zeros would
+                raise RuntimeError(                        # wait for replay
+                    "decode_attention: no counters for this shape on the "
+                    "capture stream; call it there once before capturing")
+            if c is not None:
+                _OUTGROWN.append(c)
+            c = _COUNTERS[key] = torch.zeros(max(n, 1024), dtype=torch.int32,
+                                             device=device)
+        return c
 
 
 def _decode_cuda(q, k, v, lengths, scale):
@@ -74,18 +126,23 @@ def _decode_cuda(q, k, v, lengths, scale):
     out = torch.empty_like(q)
     if out.numel() == 0 or S == 0:
         return out.zero_()
-    split_len, n_splits = split_plan(B, K, S, _sm_count(q.device.index))
-    G = H // K
-    part_acc = torch.empty((B, K, n_splits, G, D), dtype=torch.float32,
-                           device=q.device)
-    part_ml = torch.empty((B, K, n_splits, G, 2), dtype=torch.float32,
-                          device=q.device)
-    fn = _build.function("decode_attention", "decode_attention_fwd", _ARGTYPES)
+    gt = heads_per_block(H // K)
+    rows = K * cdiv(H // K, gt)
+    split_len, n_splits = split_plan(B, rows, S, _sm_count(q.device.index),
+                                     tile_keys(D, q.element_size()))
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    pa = pm = cnt = 0
+    if n_splits > 1:
+        part_acc = torch.empty((B, rows, n_splits, gt, D), dtype=torch.float32,
+                               device=q.device)
+        part_ml = torch.empty((B, rows, n_splits, gt, 2), dtype=torch.float32,
+                              device=q.device)
+        pa, pm = part_acc.data_ptr(), part_ml.data_ptr()
+        cnt = _counters(q.device, stream, B * rows).data_ptr()
+    fn = _build.function("decode_attention", "decode_attention_fwd", _ARGTYPES)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-            out.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(),
-            B, S, H, K, D, DTYPE_CODES[q.dtype], split_len, n_splits, scale,
-            stream)
+            out.data_ptr(), pa, pm, cnt, B, S, H, K, D, DTYPE_CODES[q.dtype],
+            gt, split_len, n_splits, scale, stream)
     _build.check("decode_attention", rc)
     LAUNCHES.add()
     return out

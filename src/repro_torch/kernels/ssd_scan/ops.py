@@ -6,27 +6,61 @@ reference's signature and chunk rule; a CUDA tensor goes to
 ``csrc/ssd_scan.cu`` (K8, the port of ``ssd_pallas``), a CPU tensor, or
 ``backend="torch"``, to :func:`ref.ssd_chunked`.  The reference pads S to
 a multiple of the chunk with zero steps around the Pallas call; the CUDA
-kernel masks the ragged last chunk itself (the same zero steps: dt = 0,
-no input), so nothing is copied.  :func:`ssd_step` is plain PyTorch on
-every device, as it is plain jnp in the reference.
+kernels mask the ragged last chunk themselves (the same zero steps: dt =
+0, no input), so nothing is copied.  One call runs the chunked SSD
+decomposition as four kernels on the caller's stream (C·Bᵀ once per
+(batch, group, chunk); each chunk's cumulative sums and state
+contribution; the state passed across the chunks; the outputs), with the
+scratch that :func:`plan` sizes from the shapes.  :func:`ssd_step` is
+plain PyTorch on every device, as it is plain jnp in the reference.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.common import (DTYPE_CODES, LaunchCounter,
-                                        check_operands, dispatch)
+                                        cdiv, check_operands, dispatch)
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked
 
-LAUNCHES = LaunchCounter()  # wrapper calls that launched the kernel
+LAUNCHES = LaunchCounter()  # wrapper calls that launched the kernels
 
-ALIGN = 8            # P and N: whole 16-byte rows in bf16 (the kernel's loads)
-MAX_STATE = 128      # N: the kernel keeps (64, N) f32 tiles in shared memory
+ALIGN = 8            # P and N: whole 16-byte rows in bf16 (the kernels' loads)
+MAX_STATE = 128      # N: C·Bᵀ's tensor-core kernel holds 64 rows of N in shared memory
 MAX_CHUNK = 256      # Q: the chunk's cumulative sums live in shared memory
-_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+
+
+class Plan(NamedTuple):
+    """The scratch one call of the CUDA scan needs, from the shapes alone:
+    the chunks' cumulative sums (f64), C·Bᵀ once per (batch, group, chunk)
+    and each chunk's state (f32)."""
+    cs_shape: tuple      # (Bt, H, n_chunks, Q) f64
+    cb_shape: tuple      # (Bt, G, n_chunks, Q, Q) f32, key-major
+    states_shape: tuple  # (Bt, H, n_chunks, P, N) f32
+
+
+def plan(Bt: int, S: int, H: int, P: int, G: int, N: int, chunk: int) -> Plan:
+    """The scratch of one call of the CUDA scan over chunks of ``chunk``
+    steps (the C launcher sizes its grids itself: :func:`grids`)."""
+    nc = cdiv(S, chunk)
+    return Plan(cs_shape=(Bt, H, nc, chunk), cb_shape=(Bt, G, nc, chunk, chunk),
+                states_shape=(Bt, H, nc, P, N))
+
+
+def grids(Bt: int, S: int, H: int, P: int, G: int, N: int,
+          chunk: int) -> tuple:
+    """The blocks that one call launches of each of its four kernels (C·Bᵀ,
+    state, pass, outputs), as the C launcher sizes them; builds the
+    library, so it runs where the kernels do."""
+    out = (ctypes.c_int * 4)()
+    fn = _build.function("ssd_scan", "ssd_scan_grids",
+                         [ctypes.c_int] * 7 + [ctypes.c_void_p])
+    _build.check("ssd_scan", fn(Bt, S, H, P, G, N, chunk, out))
+    return tuple(out)
 
 
 def ssd(x, dt, A, B, C, D_skip, *, chunk: int = 256, initial_state=None,
@@ -78,11 +112,16 @@ def _ssd_cuda(x, dt, A, B, C, D_skip, initial_state, chunk: int):
     if x.numel() == 0:
         final.copy_(initial_state)
         return y, final
+    p = plan(Bt, S, H, P, G, N, chunk)
+    cs = torch.empty(p.cs_shape, dtype=torch.float64, device=x.device)
+    cbt = torch.empty(p.cb_shape, dtype=torch.float32, device=x.device)
+    states = torch.empty(p.states_shape, dtype=torch.float32, device=x.device)
     fn = _build.function("ssd_scan", "ssd_scan_fwd", _ARGTYPES)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
             C.data_ptr(), D_skip.data_ptr(), initial_state.data_ptr(),
-            y.data_ptr(), final.data_ptr(), Bt, S, H, P, G, N, chunk,
+            y.data_ptr(), final.data_ptr(), cs.data_ptr(), cbt.data_ptr(),
+            states.data_ptr(), Bt, S, H, P, G, N, chunk,
             DTYPE_CODES[x.dtype], stream)
     _build.check("ssd_scan", rc)
     LAUNCHES.add()

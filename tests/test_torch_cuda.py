@@ -59,7 +59,15 @@ DECODE_CASES = [
     (2, 64, 8, 2, 16), (3, 40, 4, 4, 32), (1, 128, 16, 2, 64),
     (4, 544, 16, 16, 64),                       # the serving decode
     (3, 300, 16, 4, 128),
+    (4, 544, 16, 16, 128),                      # deepseek-moe-16b's
+    (4, 544, 32, 32, 64),                       # zamba2-1.2b's shared block
+    (3, 400, 16, 8, 64),                        # G 2
+    (2, 1000, 8, 1, 64),                        # G 8 (MQA), a long cache
+    (2, 777, 36, 4, 128),                       # G 9: two head groups
 ]
+# H, K, D at batch 4 over a cache of 544: the three served shapes, G 2, 4, 8
+DECODE_EDGE_SHAPES = [(16, 16, 64), (16, 16, 128), (32, 32, 64),
+                      (16, 8, 64), (16, 4, 128), (8, 1, 64)]
 
 
 @pytest.fixture
@@ -125,6 +133,158 @@ def test_decode_kernel_length_zero_gives_zero(card):
     got = decode_attention(q, kv, kv, lengths)
     assert torch.equal(got[0], torch.zeros_like(got[0]))
     torch.testing.assert_close(got[1], torch.ones_like(got[1]))
+
+
+def _decode_operands(card, B, S, H, K, D, dtype, lens, seed=0):
+    rng = np.random.default_rng(seed)
+    q = _randn(rng, (B, H, D), dtype, card)
+    k, v = (_randn(rng, (B, S, K, D), dtype, card) for _ in range(2))
+    for b, n in enumerate(lens):                 # garbage past the length
+        k[b, n:], v[b, n:] = 1e4, -1e4
+    return q, k, v, torch.as_tensor(lens, dtype=torch.int32, device=card)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", DECODE_EDGE_SHAPES)
+def test_decode_kernel_length_edges_on_card(card, shape, dtype):
+    """Lengths 0, 1, one split, one split and a key, and the whole cache,
+    in one batch: the split plan's edges, and the last block's reduction
+    over one split or all of them."""
+    H, K, D = shape
+    S = 544
+    gt = decode_ops.heads_per_block(H // K)
+    split_len, n_splits = decode_ops.split_plan(
+        5, K * -(-(H // K) // gt), S,
+        torch.cuda.get_device_properties(card).multi_processor_count,
+        decode_ops.tile_keys(D, torch.tensor([], dtype=dtype).element_size()))
+    assert n_splits > 1
+    lens = (0, 1, split_len, split_len + 1, S)
+    q, k, v, lengths = _decode_operands(card, 5, S, H, K, D, dtype, lens)
+    got = decode_attention(q, k, v, lengths)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+    _close(got[1:], decode_attention_ref(q, k, v, lengths)[1:], dtype)
+
+
+# (B, S, H, K, D, lengths): the served plan, 5 splits a pair; and a long
+# cache at batch 1, 64 splits of one pair on one counter
+DECODE_PLANS = {
+    "served": (4, 544, 16, 16, 64, (513, 530, 543, 544)),
+    "long_cache": (1, 4096, 8, 1, 64, (4000,)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plan", list(DECODE_PLANS))
+def test_decode_kernel_two_calls_in_a_row_agree_and_leave_counters_at_0(card, plan):
+    B, S, H, K, D, lens = DECODE_PLANS[plan]
+    q, k, v, lengths = _decode_operands(card, B, S, H, K, D, torch.bfloat16,
+                                        lens)
+    first = decode_attention(q, k, v, lengths)
+    second = decode_attention(q, k, v, lengths)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    _close(first, decode_attention_ref(q, k, v, lengths), torch.bfloat16)
+    for c in decode_ops._COUNTERS.values():
+        assert int(c.abs().sum()) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plan", list(DECODE_PLANS))
+def test_decode_kernel_graph_replay_on_card(card, plan):
+    """A CUDA graph of one call, replayed 3 times, equals the eager call
+    (the last block resets the counter it counted on); new lengths
+    written into the captured tensor are read on the card."""
+    B, S, H, K, D, lens = DECODE_PLANS[plan]
+    q, k, v, lengths = _decode_operands(card, B, S, H, K, D, torch.bfloat16,
+                                        lens)
+    eager = decode_attention(q, k, v, lengths)
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):        # warm-up on the capture stream
+        decode_attention(q, k, v, lengths)
+    torch.cuda.current_stream().wait_stream(s)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=s):
+        out = decode_attention(q, k, v, lengths)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+    lengths.copy_(torch.tensor([1, 64, 65, 300][:B], dtype=torch.int32))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, decode_attention(q, k, v, lengths))
+
+
+@pytest.mark.cuda
+def test_decode_kernel_two_streams_at_once_on_card(card):
+    """Calls queued on two streams at once, each combining 64 splits
+    through its counters: each stream has counters of its own, so neither
+    call's last-block count is taken by the other's."""
+    a = _decode_operands(card, 1, 4096, 8, 1, 64, torch.bfloat16, (4000,),
+                         seed=1)
+    b = _decode_operands(card, 1, 4096, 8, 1, 64, torch.bfloat16, (2500,),
+                         seed=2)
+    want_a, want_b = decode_attention(*a), decode_attention(*b)
+    streams = torch.cuda.Stream(), torch.cuda.Stream()
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream())
+    outs = []
+    for _ in range(20):
+        with torch.cuda.stream(streams[0]):
+            outs.append((decode_attention(*a), want_a))
+        with torch.cuda.stream(streams[1]):
+            outs.append((decode_attention(*b), want_b))
+    torch.cuda.synchronize()
+    for got, want in outs:
+        assert torch.equal(got, want)
+    dev = torch.device(card).index or 0
+    sets = [decode_ops._COUNTERS[(dev, st.cuda_stream)] for st in streams]
+    assert sets[0].data_ptr() != sets[1].data_ptr()
+
+
+@pytest.mark.cuda
+def test_decode_kernel_graph_outlives_a_larger_call_on_its_stream(card):
+    """A graph captured at the served plan (4 x 16 counted pairs) still
+    replays right after an eager call on its capture stream needed more
+    counters than the set held (33 x 32 pairs, past 1,024): the set it
+    counts on was kept, not freed, and memory handed out since then does
+    not touch it."""
+    small = _decode_operands(card, 4, 544, 16, 16, 64, torch.bfloat16,
+                             (513, 530, 543, 544))
+    large = _decode_operands(card, 33, 256, 32, 32, 64, torch.bfloat16,
+                             tuple(range(100, 256, 4))[:33])
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):        # warm-up on the capture stream
+        eager = decode_attention(*small)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=s):
+        out = decode_attention(*small)
+    dev = torch.device(card).index or 0
+    before = decode_ops._COUNTERS[(dev, s.cuda_stream)]
+    ptr, n = before.data_ptr(), before.numel()
+    del before                        # the test holds no reference to it
+    with torch.cuda.stream(s):
+        got = decode_attention(*large)
+        after = decode_ops._COUNTERS[(dev, s.cuda_stream)]
+        assert after.numel() > n
+        junk = [torch.full((1 << 16,), 7, dtype=torch.int32, device=card)
+                for _ in range(64)]    # reuses memory a freed set would have
+        for _ in range(3):
+            graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+    _close(got, decode_attention_ref(*large), torch.bfloat16)
+    kept = [c for c in decode_ops._OUTGROWN if c.data_ptr() == ptr]
+    assert len(kept) == 1 and int(kept[0].abs().sum()) == 0
+    assert int(after.abs().sum()) == 0
+    del junk
 
 
 @pytest.mark.cuda
@@ -342,6 +502,11 @@ SSD_CASES = {
     "chunk_32": (2, 20, 8, 64, 1, 64, "reference"),
     "16_chunks": (1, 4096, 8, 64, 1, 64, "reference"),
     "groups_2": (2, 300, 8, 32, 2, 32, "reference"),
+    "S_1024": (1, 1024, 8, 64, 1, 128, "reference"),
+    "S_2048": (1, 2048, 8, 64, 1, 64, "reference"),
+    "ragged_700": (2, 700, 8, 64, 1, 128, "reference"),
+    "S_1024_model_decays": (1, 1024, 8, 64, 1, 128, "model"),
+    "ragged_700_groups_2_model_decays": (2, 700, 8, 64, 2, 64, "model"),
     "P8_N8": (1, 24, 6, 8, 3, 8, "reference"),
     "P128": (2, 300, 4, 128, 1, 64, "reference"),
     "large_decays": (1, 512, 2, 64, 1, 64, "large"),
@@ -365,6 +530,19 @@ def _ssd_inputs(card, case, dtype, seed=0):
     f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=card)
     return (x, f32(dt), f32(A), B, C, f32(rng.normal(size=H)),
             f32(rng.normal(size=(Bt, H, P, N))))
+
+
+@pytest.mark.cuda
+def test_ssd_grids_at_mamba2_prefill_have_768_output_blocks(card):
+    """The launcher's grids at mamba2-130m's prefill (batch 4, 24 heads, 2
+    chunks of 256, 64 channels): 4 query tiles of 64 in each chunk give
+    768 output blocks, where one block per (64 channels, head, batch) made
+    96; C·Bᵀ is formed once for the 24 heads of the group, 10 tiles at or
+    below the diagonal per (batch, chunk)."""
+    cb, state, pas, out = ssd_ops.grids(4, 512, 24, 64, 1, 128, 256)
+    assert (cb, state, pas, out) == (80, 384, 768, 768)
+    assert ssd_ops.grids(4, 512, 24, 64, 24, 128, 256)[0] == 24 * cb
+    assert ssd_ops.grids(2, 700, 8, 64, 1, 128, 256)[3] == 2 * 8 * 3 * 4
 
 
 @pytest.mark.cuda

@@ -182,11 +182,41 @@ def test_decode_wrapper_refuses_before_launch():
 @pytest.mark.parametrize("B,K,S", [(4, 16, 544), (1, 1, 32768), (128, 8, 100),
                                    (2, 2, 1), (3, 4, 1000)])
 def test_split_plan_covers_the_cache(B, K, S):
-    split_len, n_splits = decode_ops.split_plan(B, K, S, n_sm=132)
-    assert split_len % decode_ops.CHUNK == 0
+    tile = decode_ops.tile_keys(64, 2)            # D 64 in bf16: 16 keys
+    split_len, n_splits = decode_ops.split_plan(B, K, S, n_sm=132, tile=tile)
+    assert split_len % tile == 0
     assert n_splits * split_len >= S > (n_splits - 1) * split_len
+    assert 1 <= n_splits <= decode_ops.MAX_SPLITS
     if (B, K, S) == (4, 16, 544):              # the serving decode shape
-        assert (split_len, n_splits) == (64, 9)
+        assert (split_len, n_splits) == (128, 5)
+
+
+@pytest.mark.parametrize("H,K,D,plan", [
+    (16, 16, 64, (128, 5)),     # qwen1.5-0.5b: 16-key tiles, two per warp
+    (16, 16, 128, (64, 9)),     # deepseek-moe-16b: 8-key tiles, two per warp
+    (32, 32, 64, (128, 5)),     # zamba2-1.2b's shared block
+])
+def test_split_plan_at_the_served_decode_shapes(H, K, D, plan):
+    """Batch 4, a cache of 544 positions, bf16, 132 SMs: the plans the
+    served decode steps launch."""
+    gt = decode_ops.heads_per_block(H // K)
+    rows = K * -(-(H // K) // gt)
+    assert decode_ops.split_plan(4, rows, 544, 132,
+                                 decode_ops.tile_keys(D, 2)) == plan
+
+
+@pytest.mark.parametrize("G,gt", [(1, 1), (2, 2), (3, 4), (4, 4), (8, 8),
+                                  (9, 8), (16, 8)])
+def test_heads_per_block(G, gt):
+    assert decode_ops.heads_per_block(G) == gt
+
+
+@pytest.mark.parametrize("D,itemsize,keys", [(64, 2, 16), (128, 2, 8),
+                                             (16, 2, 64), (128, 4, 4),
+                                             (32, 4, 16)])
+def test_tile_is_two_kilobytes_of_rows(D, itemsize, keys):
+    assert decode_ops.tile_keys(D, itemsize) == keys
+    assert keys * D * itemsize == decode_ops.TILE_BYTES
 
 
 def test_failed_build_raises_and_leaves_no_library(tmp_path, monkeypatch):

@@ -19,6 +19,7 @@ The CUDA kernel K8 is held against the plain version on the card by
 """
 import dataclasses
 import re
+import types
 
 import jax
 import jax.numpy as jnp
@@ -179,6 +180,71 @@ def test_ssd_backend_torch_is_the_plain_version():
     got = ssd(*t[:-1], chunk=chunk, initial_state=t[-1], backend="torch")
     want = ssd_chunked(*t[:-1], t[-1], chunk)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+SSD_PLAN_SHAPES = [   # (Bt, S, H, P, G, N, chunk)
+    (4, 512, 24, 64, 1, 128, 256),     # mamba2-130m's prefill
+    (4, 512, 64, 64, 1, 64, 256),      # zamba2-1.2b's
+    (2, 700, 8, 64, 1, 128, 256),      # a ragged last chunk
+    (2, 300, 8, 32, 2, 32, 256),       # G 2
+    (2, 20, 8, 64, 1, 64, 32),         # one short chunk
+]
+
+
+@pytest.mark.parametrize("shape,want", list(zip(SSD_PLAN_SHAPES, [
+    # (chunks, scratch bytes)
+    (2, 8_781_824),     # 0.4 MB sums, 2.1 MB C·Bᵀ, 6.3 MB states
+    (2, 11_534_336),
+    (3, 3_244_032),
+    (2, 2_293_760),
+    (1, 274_432),
+])))
+def test_ssd_plan_from_the_shapes(shape, want):
+    """The CUDA scan's scratch follows from the shapes alone: cumulative
+    sums and chunk states per head, C·Bᵀ once per (batch, group, chunk)."""
+    Bt, S_, H, P, G, N, Q = shape
+    p = ssd_ops.plan(*shape)
+    nc, nbytes = want
+    assert p.cs_shape == (Bt, H, nc, Q)
+    assert p.cb_shape == (Bt, G, nc, Q, Q)
+    assert p.states_shape == (Bt, H, nc, P, N)
+    n = lambda shape: int(np.prod(shape))
+    assert 8 * n(p.cs_shape) + 4 * (n(p.cb_shape) + n(p.states_shape)) == nbytes
+
+
+@pytest.mark.parametrize("shape", SSD_PLAN_SHAPES)
+def test_ssd_card_wrapper_allocates_the_plans_scratch(monkeypatch, shape):
+    """The card wrapper takes its scratch from ``torch.empty`` (written
+    before it is read, so nothing is zeroed) at the plan's shapes, and
+    hands the C entry point those tensors and the chunk it was given."""
+    Bt, S_, H, P, G, N, Q = shape
+    made, seen = [], []
+    empty = torch.empty
+
+    def spy_empty(*args, **kw):
+        t = empty(*args, **kw)
+        made.append((tuple(t.shape), t.dtype, t.data_ptr()))
+        return t
+
+    def fake_fn(*args):
+        seen.append(args)
+        return 0
+
+    monkeypatch.setattr(torch, "empty", spy_empty)
+    monkeypatch.setattr(ssd_ops._build, "function", lambda *a: fake_fn)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: types.SimpleNamespace(cuda_stream=0))
+    x = torch.zeros(Bt, S_, H, P)
+    Bm = torch.zeros(Bt, S_, G, N)
+    ssd_ops._ssd_cuda(x, torch.zeros(Bt, S_, H), -torch.ones(H), Bm, Bm,
+                      torch.ones(H), torch.zeros(Bt, H, P, N), Q)
+    p = ssd_ops.plan(*shape)
+    scratch = [(p.cs_shape, torch.float64), (p.cb_shape, torch.float32),
+               (p.states_shape, torch.float32)]
+    assert [m[:2] for m in made[-3:]] == scratch
+    (args,) = seen
+    assert list(args[9:12]) == [m[2] for m in made[-3:]]
+    assert list(args[12:19]) == [Bt, S_, H, P, G, N, Q]
 
 
 def _bad_ssd_args():
