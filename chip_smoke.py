@@ -27,7 +27,14 @@ Phases, each fatal on failure:
 3. serve: run the launcher's main path, ``repro_torch.launch.serve.main``,
    on qwen1.5-0.5b at full width in bf16 with random weights from a seed
    (batch 4, prompt 512, 32 new tokens), with every launch counter set to
-   0 just before and read just after; each kernel must have launched;
+   0 just before and read just after.  The launcher runs one prefill and
+   one decode step eagerly, captures each as a CUDA graph and replays the
+   prefill graph once and the decode graph 31 times: the loop's launches
+   (the replays') must equal the eager loop's exactly, and the warm-up's,
+   read apart, one prefill's and one decode step's; each kernel must have
+   launched.  Then the graphed loop's ids and every step's logits must
+   equal the eager loop's (``_serve_once``, op by op from Python) on the
+   same prompt bitwise;
 4. reference: feed the same prompt and the generated tokens (teacher
    forcing) through the plain path (``backend="torch"``) and compare the
    logits of every step;
@@ -35,7 +42,8 @@ Phases, each fatal on failure:
    every request a Faaslet call of the port's runtime, running the forward
    pass (K5) and pushing the shared serve/stats vector over the int8 wire
    (K1), counters zeroed just before; every request must succeed, K1 launch
-   once per push and K5 24 times per forward, the stats equal the token
+   once per push and K5 24 times per forward (the serving loop's graph
+   warm-up, one prefill and one decode step, held apart), the stats equal the token
    histogram within the int8 bound, and the tokens the plain path's argmax
    (one forward per prompt, as the fan-out runs it) in at least 90% of the
    requests; then one call's parameter copy and forward timed alone;
@@ -53,15 +61,18 @@ Phases, each fatal on failure:
    CUDA graph of the call, a kernel); the state-push
    kernels also at 16 Mi elements, and one host-side encode of numpy
    operands beside the host codec; then the warm prefill and decode loop,
-   and one profiled run for the device's busy share;
+   eager and graphed side by side (three runs each, and the capture
+   time), and one profiled run of each for the device's busy share;
 8. moe serve: the launcher's main path on deepseek-moe-16b at full width
    (16.4 B parameters, bf16, random weights from the seed; batch 4,
    prompt 512, 32 new tokens), counters zeroed just before: the prefill
    takes the GShard einsum dispatch, every decode step the sorted path
    through K7 (3 calls in each of the 27 MoE layers), so K5 launches 28
    times, K6 28 x 31 and K7 27 x 3 x 31, counted by shape as 27 x 2 x
-   31 at gate/up and 27 x 31 at down; every router call's expert sets
-   are recorded;
+   31 at gate/up and 27 x 31 at down (the warm-up's one decode step held
+   apart); the graphed loop held bitwise against the eager loop as in
+   phase 3, whose router calls' expert sets are recorded (a replay runs
+   no Python, and the two runs are bitwise one);
 9. moe reference: the same prompt and generated tokens through the plain
    path, three ways.  bf16 rounds apart on the two paths, so a near-tie
    between the 6th and 7th expert can pick another expert; the token's
@@ -85,7 +96,8 @@ Phases, each fatal on failure:
    counters zeroed just before: the prefill runs K8 (the SSD scan) once
    per Mamba layer, 24 and 38 times; zamba2's shared attention block adds
    K5 7 times in the prefill and K6 7 times per decode step; every other
-   kernel launches no time;
+   kernel launches no time (the warm-up held apart); the graphed loop
+   held bitwise against the eager loop as in phase 3;
 12. ssm reference: as phase 4, each model's teacher-forced logits against
    the plain path (held for mamba2-130m, reported for zamba2-1.2b, whose
    bf16 paths land ~0.15 apart), the argmax held for both; two correct
@@ -134,7 +146,9 @@ call launches, and stops; ``python3 chip_smoke.py ssd`` holds K8 at every
 phase-2 case, times it at both SSM prefill shapes with the time of each of
 its kernels, and stops.  ``python3 chip_smoke.py profile`` serves each of
 the four models and prints the device time of one prefill and of one
-decode step (profiler, two runs each), and stops.  These three modes call
+decode step (profiler, two runs each) and the wall of each, of the eager
+loop and, where the launcher has step graphs, of their replays, and
+stops.  These three modes call
 only the public entry points (the kernels build at first use), so that a
 copy of this script in an earlier checkout (``git archive`` of it
 unpacked under ``build/``) measures that checkout's kernels the same way:
@@ -738,6 +752,43 @@ def read_launches() -> dict:
     return {k: c.value for k, c in launch_counters().items()}
 
 
+def split_launches(res, want_loop: dict, want_warm: dict) -> dict:
+    """The launches of a ``serve.main`` run on the card (counters zeroed
+    just before), split into its eager warm-up's (one prefill and one
+    decode step on the capture stream, which the launcher keeps) and its
+    loop's (the graphs' replays).  Each must equal its expectation
+    exactly (a kernel left out of either fails here too), and the loop
+    must have replayed one prefill graph and one decode graph per new
+    token after the first.  Returns the loop's launches."""
+    graphs = res["graphs"]
+    total = read_launches()
+    warm = {k: graphs.warmup_launches.count(c)
+            for k, c in launch_counters().items()}
+    loop = {k: total[k] - warm[k] for k in total}
+    log(f"  launches of the loop {loop} (expected {want_loop}); of the "
+        f"warm-up {warm} (expected {want_warm}); replays {graphs.replays}")
+    if loop != want_loop:
+        raise AssertionError(f"loop launches {loop}, expected {want_loop}")
+    if warm != want_warm:
+        raise AssertionError(f"warm-up launches {warm}, expected {want_warm}")
+    if graphs.replays != {"prefill": 1, "decode": NEW_TOKENS - 1}:
+        raise AssertionError(f"replays {graphs.replays}")
+    return loop
+
+
+def warmup_launches(want_loop: dict, prefill: dict) -> dict:
+    """One prefill's and one decode step's launches (the warm-up's), from
+    the loop's and the prefill's."""
+    return {k: prefill.get(k, 0) + (n - prefill.get(k, 0)) // (NEW_TOKENS - 1)
+            for k, n in want_loop.items()}
+
+
+def close_graphs(res) -> None:
+    """Free a served model's step graphs (graphs, then their pool)."""
+    if res.get("graphs") is not None:
+        res["graphs"].close()
+
+
 def phase_serve() -> tuple:
     import torch
     from repro_torch.launch import serve
@@ -748,14 +799,12 @@ def phase_serve() -> tuple:
                       str(PROMPT), "--new-tokens", str(NEW_TOKENS),
                       "--device", "cuda", "--seed", str(SEED)],
                      keep_logits=True)
-    launches = read_launches()
     cfg = res["cfg"]
-    want = {k: 0 for k in launches}
+    want = {k: 0 for k in launch_counters()}
     want.update({"flash_attention": cfg.n_layers,
                  "decode_attention": cfg.n_layers * (NEW_TOKENS - 1)})
-    log(f"  launches {launches} (expected {want})")
-    if launches != want:          # a kernel launched no time fails here too
-        raise AssertionError(f"launches {launches}, expected {want}")
+    launches = split_launches(res, want, warmup_launches(
+        want, {"flash_attention": cfg.n_layers}))
     gen, logits = res["gen"], res["logits"]
     if tuple(gen.shape) != (BATCH, NEW_TOKENS) or len(logits) != NEW_TOKENS:
         raise AssertionError(f"generated {tuple(gen.shape)}, "
@@ -1053,13 +1102,25 @@ def phase_fanout() -> tuple:
     torch.cuda.synchronize()
     launches = read_launches()
     cfg, r = res["cfg"], res["faasm"]
+    # the serving loop's warm-up (one prefill and one decode step before
+    # its graphs are captured) is reported apart and held exactly
+    warm = {k: res["graphs"].warmup_launches.count(c)
+            for k, c in launch_counters().items()}
+    close_graphs(res)
+    log(f"  launches of the serving loop's warm-up {warm}")
+    if {k: n for k, n in warm.items() if n} != {
+            "flash_attention": cfg.n_layers,
+            "decode_attention": cfg.n_layers}:
+        raise AssertionError(f"warm-up launches {warm}")
+    launches = {k: n - warm[k] for k, n in launches.items()}
     if r["shed"] or r["deadline_expired"] or None in r["tokens"]:
         raise AssertionError(f"fan-out: not every request served: shed "
                              f"{r['shed']}, expired {r['deadline_expired']}")
     calls = FANOUT_REQUESTS + FANOUT_WARM
     # the serve loop's prefill, the forward's warm-up build, every call
     want_flash = cfg.n_layers * (2 + calls)
-    log(f"  launches {launches}; expected flash_attention {want_flash} "
+    log(f"  launches less the warm-up's {launches}; expected "
+        f"flash_attention {want_flash} "
         f"({cfg.n_layers} per forward), quantize_delta >= {calls} (one per "
         f"push)")
     if launches["flash_attention"] != want_flash or \
@@ -1306,29 +1367,32 @@ def phase_moe_serve() -> tuple:
     log(f"moe serve: {MOE_ARCH} full width, bf16, batch {BATCH}, prompt "
         f"{PROMPT}, {NEW_TOKENS} new tokens")
     reset_launches()
-    with RoutingRecorder() as rec:
-        res = serve.main(["--arch", MOE_ARCH, "--batch", str(BATCH),
-                          "--prompt-len", str(PROMPT), "--new-tokens",
-                          str(NEW_TOKENS), "--device", "cuda", "--seed",
-                          str(SEED)], keep_logits=True)
-    launches = read_launches()
+    res = serve.main(["--arch", MOE_ARCH, "--batch", str(BATCH),
+                      "--prompt-len", str(PROMPT), "--new-tokens",
+                      str(NEW_TOKENS), "--device", "cuda", "--seed",
+                      str(SEED)], keep_logits=True)
     cfg = res["cfg"]
     n_moe = cfg.n_layers - cfg.first_k_dense
-    want = {k: 0 for k in launches}
+    want = {k: 0 for k in launch_counters()}
     want.update({"flash_attention": cfg.n_layers,
                  "decode_attention": cfg.n_layers * (NEW_TOKENS - 1),
                  "moe_gmm": 3 * n_moe * (NEW_TOKENS - 1)})
-    log(f"  launches {launches} (expected {want})")
-    if launches != want:
-        raise AssertionError(f"launches {launches}, expected {want}")
+    launches = split_launches(res, want, warmup_launches(
+        want, {"flash_attention": cfg.n_layers}))
     # K7 by shape, as its wrapper counted them: each decode step's gate and
-    # up projections (d, f) and its down projection (f, d) in every layer
+    # up projections (d, f) and its down projection (f, d) in every layer;
+    # the loop's are the counter's less the warm-up's one decode step
     from repro_torch.kernels.moe_gmm import ops as gmm_ops
     d, f = cfg.d_model, cfg.moe_d_ff
-    by_shape = gmm_ops.LAUNCHES.by_key()
+    warm = res["graphs"].warmup_launches.by_key(gmm_ops.LAUNCHES)
+    by_shape = {k: n - warm.get(k, 0)
+                for k, n in gmm_ops.LAUNCHES.by_key().items()}
     want_shape = {(d, f): 2 * n_moe * (NEW_TOKENS - 1),
                   (f, d): n_moe * (NEW_TOKENS - 1)}
-    log(f"  K7 launches by (d, f) {by_shape} (expected {want_shape})")
+    log(f"  K7 launches by (d, f) of the loop {by_shape} (expected "
+        f"{want_shape}); of the warm-up {warm}")
+    if warm != {(d, f): 2 * n_moe, (f, d): n_moe}:
+        raise AssertionError(f"K7 warm-up launches by shape {warm}")
     if by_shape != want_shape:
         raise AssertionError(f"K7 launches by shape {by_shape}, expected "
                              f"{want_shape}")
@@ -1353,9 +1417,9 @@ def phase_moe_serve() -> tuple:
     log(f"  {n_params / 1e9:.3f}B parameters "
         f"({torch.cuda.memory_allocated() / 1e9:.1f} GB on the card); "
         f"prefill {res['prefill_s'] * 1e3:.2f}ms, decode "
-        f"{res['decode_s'] * 1e3:.2f}ms (first run, routing recorded: "
+        f"{res['decode_s'] * 1e3:.2f}ms (first run: "
         f"{BATCH * (NEW_TOKENS - 1) / res['decode_s']:.1f} tok/s)")
-    return res, launches, rec.calls
+    return res, launches
 
 
 def _teacher_run(res, model, force=None) -> tuple:
@@ -1707,10 +1771,11 @@ def phase_gmm_ab(errs) -> None:
 
 
 def _serve_once(model, params, tokens, decode_ctx=contextlib.nullcontext,
-                prefill_ctx=contextlib.nullcontext) -> tuple:
-    """Prefill + greedy decode of the kernel path: (prefill s, decode s);
-    ``prefill_ctx`` wraps the prefill and ``decode_ctx`` the decode loop
-    (a profiler)."""
+                prefill_ctx=contextlib.nullcontext, kept=None) -> tuple:
+    """Prefill + greedy decode of the kernel path, op by op from Python
+    (the eager loop): (prefill s, decode s); ``prefill_ctx`` wraps the
+    prefill and ``decode_ctx`` the decode loop (a profiler); a list
+    ``kept`` receives every step's logits."""
     import torch
     with torch.no_grad(), contextlib.ExitStack() as stack:
         cache = model.init_cache(BATCH, PROMPT + NEW_TOKENS, "cuda")
@@ -1723,50 +1788,170 @@ def _serve_once(model, params, tokens, decode_ctx=contextlib.nullcontext,
         stack.enter_context(decode_ctx())
         t1 = time.perf_counter()
         for i in range(NEW_TOKENS - 1):
+            if kept is not None:
+                kept.append(lg)
             idx = torch.full((BATCH,), n + i, dtype=torch.int32, device="cuda")
             lg, cache = model.decode_step(params, tok, cache, idx)
             tok = lg.argmax(-1).to(torch.int32)
         torch.cuda.synchronize()
+        if kept is not None:
+            kept.append(lg)
         return t1 - t0, time.perf_counter() - t1
 
 
-def phase_warm_serve(res, decode_only: bool = False) -> None:
-    """Warm prefill and decode-loop times of the kernel path on the weights
-    and prompt of the main-path run, then one run under torch.profiler for
-    the device's busy share and the ops that hold it (with
-    ``decode_only``, the profiler covers the decode loop alone)."""
-    from torch.profiler import ProfilerActivity, profile
-    model, params, tokens = res["model"], res["params"], res["tokens"]
-    name = res["cfg"].name
-    runs = [_serve_once(model, params, tokens) for _ in range(3)]
-    log(f"warm serve {name} (3 runs): prefill ms "
-        f"{[r[0] * 1e3 for r in runs]}, decode tok/s "
-        f"{[BATCH * (NEW_TOKENS - 1) / r[1] for r in runs]}")
-    prof = profile(activities=[ProfilerActivity.CUDA])
-    if decode_only:
-        wall = _serve_once(model, params, tokens, lambda: prof)[1]
-        warm_wall = min(r[1] for r in runs)
-        what = f"{NEW_TOKENS - 1} decode steps"
-    else:
-        with prof:
-            wall = sum(_serve_once(model, params, tokens))
-        warm_wall = min(sum(r) for r in runs)
-        what = f"one prefill + {NEW_TOKENS - 1} decode steps"
+def _serve_graphed(graphs, tokens, decode_ctx=contextlib.nullcontext,
+                   prefill_ctx=contextlib.nullcontext) -> tuple:
+    """The launcher's graphs replayed as ``_serve_once`` runs the eager
+    loop (the same contexts, no copy of a step's token): (prefill s,
+    decode s)."""
+    import torch
+    with torch.no_grad(), contextlib.ExitStack() as stack:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with prefill_ctx():
+            graphs.prefill(tokens)
+            torch.cuda.synchronize()
+        stack.enter_context(decode_ctx())
+        t1 = time.perf_counter()
+        for _ in range(NEW_TOKENS - 1):
+            graphs.step()
+        torch.cuda.synchronize()
+        return t1 - t0, time.perf_counter() - t1
+
+
+def replay_host_ms(graphs, tokens) -> tuple:
+    """One graphed decode loop with the host's side timed apart: (ms the
+    host takes to queue one decode replay, wall ms per decode step).
+    Where the first nears the second, the host bounds the loop."""
+    import torch
+    with torch.no_grad():
+        graphs.prefill(tokens)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(NEW_TOKENS - 1):
+            graphs.step()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    return ((t1 - t0) * 1e3 / (NEW_TOKENS - 1),
+            (t2 - t0) * 1e3 / (NEW_TOKENS - 1))
+
+
+def phase_graph_hold(res, record_routes: bool = False):
+    """The launcher's graphed loop (``serve.main``'s run) against the eager
+    loop (``_serve_once``) on the same weights and prompt: the generated
+    ids and every step's logits bitwise equal, since both run the same
+    kernels in the same order.  With ``record_routes``, returns the eager
+    run's router calls (their expert ids), which are therefore the graphed
+    run's: a replay runs no Python, so its routing is read off its eager
+    twin."""
+    import torch
+    kept = []
+    with RoutingRecorder() if record_routes else contextlib.nullcontext() \
+            as rec:
+        _serve_once(res["model"], res["params"], res["tokens"], kept=kept)
+    ids = torch.stack([lg.argmax(-1).to(torch.int32) for lg in kept], 1)
+    same_ids = torch.equal(ids, res["gen"])
+    diff = max(float((a - b).abs().max())
+               for a, b in zip(res["logits"], kept))
+    same = [torch.equal(a, b) for a, b in zip(res["logits"], kept)]
+    log(f"graphs {res['cfg'].name}: the graphed loop against the eager loop "
+        f"on the same prompt: ids {'equal' if same_ids else 'DIFFER'}, "
+        f"logits bitwise equal at {sum(same)} of {len(kept)} steps (max "
+        f"|dlogit| {diff:.3e}); capture {res['capture_s'] * 1e3:.1f}ms")
+    if not same_ids or len(same) != NEW_TOKENS or not all(same):
+        raise AssertionError("the graphed loop differs from the eager loop")
+    return rec.calls if record_routes else None
+
+
+def _busy(prof) -> tuple:
+    """(device ms, kernels, events) in a profiler trace."""
     events = device_events(prof)
     busy_us = sum(e.self_device_time_total for e in events)
     if busy_us <= 0:
         raise RuntimeError("the profiler saw no device time")
-    n_events = sum(e.count for e in events)
-    per_step = (f" ({n_events / (NEW_TOKENS - 1):.0f} per decode step)"
-                if decode_only else "")
-    log(f"profile {name} ({what}): device busy "
-        f"{busy_us / 1e3:.1f}ms in {n_events} kernels{per_step}; "
-        f"{busy_us / 1e4 / warm_wall:.1f}% of the fastest unprofiled run's "
-        f"{warm_wall * 1e3:.1f}ms wall ({wall * 1e3:.1f}ms under the profiler)")
-    for e in sorted(events, key=lambda e: e.self_device_time_total,
-                    reverse=True)[:8]:
-        log(f"  {e.self_device_time_total / 1e3:8.2f}ms  {e.count:6d}x  "
-            f"{e.key[:90]}")
+    return busy_us / 1e3, sum(e.count for e in events), events
+
+
+def phase_warm_serve(res, decode_only: bool = False) -> None:
+    """Warm prefill and decode-loop times on the weights and prompt of the
+    main-path run, of the eager loop (``_serve_once``) and of the
+    launcher's graphed loop (``ServeGraphs.generate``), three runs each,
+    then one run of each under torch.profiler for the device's busy
+    share and the ops that hold it (with ``decode_only``, the profiler
+    covers the decode loop alone).  The graphed profile replays the
+    graphs as ``_serve_once`` runs the eager loop; it must hold one record
+    for each node of the graphs it replays (counted by libcuda's
+    ``cuGraphGetNodes`` on graphs of the same steps), or its trace is not
+    whole and the graphed busy share is the eager profile's device ms
+    over the graphed wall, logged so beside the graphed trace's own."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    model, params, tokens = res["model"], res["params"], res["tokens"]
+    graphs, name = res["graphs"], res["cfg"].name
+    runs = [_serve_once(model, params, tokens) for _ in range(3)]
+    g_runs = [graphs.generate(tokens, NEW_TOKENS) for _ in range(3)]
+    g_runs = [(g.prefill_s, g.decode_s) for g in g_runs]
+    rate = lambda r: BATCH * (NEW_TOKENS - 1) / r[1]
+    host = [replay_host_ms(graphs, tokens) for _ in range(2)]
+    log(f"warm serve {name} (3 runs each), eager | graphed: prefill ms "
+        f"{[r[0] * 1e3 for r in runs]} | {[r[0] * 1e3 for r in g_runs]}, "
+        f"decode tok/s {[rate(r) for r in runs]} | "
+        f"{[rate(r) for r in g_runs]}; capture {res['capture_s'] * 1e3:.1f}ms"
+        f"; host ms to queue a decode replay {[round(h[0], 4) for h in host]}"
+        f" of {[round(h[1], 4) for h in host]} ms per step")
+    pick = (lambda r: r[1]) if decode_only else sum
+    what = (f"{NEW_TOKENS - 1} decode steps" if decode_only
+            else f"one prefill + {NEW_TOKENS - 1} decode steps")
+    out = {}
+    for loop, serve_fn, warm_runs in (
+            ("eager", lambda **kw: _serve_once(model, params, tokens, **kw),
+             runs),
+            ("graphed", lambda **kw: _serve_graphed(graphs, tokens, **kw),
+             g_runs)):
+        prof = profile(activities=[ProfilerActivity.CUDA])
+        if decode_only:
+            wall = serve_fn(decode_ctx=lambda: prof)[1]
+        else:
+            with prof:
+                wall = sum(serve_fn())
+        busy_ms, n_kernels, events = _busy(prof)
+        warm_wall = min(pick(r) for r in warm_runs)
+        out[loop] = (busy_ms, n_kernels, warm_wall, events)
+        per_step = (f" ({n_kernels / (NEW_TOKENS - 1):.0f} per decode step)"
+                    if decode_only else "")
+        log(f"profile {name} {loop} ({what}): device busy {busy_ms:.1f}ms "
+            f"in {n_kernels} kernels{per_step}; "
+            f"{100 * busy_ms / 1e3 / warm_wall:.1f}% of the fastest "
+            f"unprofiled run's {warm_wall * 1e3:.1f}ms wall "
+            f"({wall * 1e3:.1f}ms under the profiler)")
+        for e in sorted(events, key=lambda e: e.self_device_time_total,
+                        reverse=True)[:8]:
+            log(f"  {e.self_device_time_total / 1e3:8.2f}ms  {e.count:6d}x  "
+                f"{e.key[:90]}")
+    # what the replays queued, read off graphs of the same steps through
+    # libcuda: a whole trace holds one record for each of their nodes
+    steps = NEW_TOKENS - 1
+    with torch.no_grad():
+        graphs.prefill(tokens)        # a position the decode step may write
+        nodes = steps * len(graph_node_types(graphs._decode_body))
+        if not decode_only:
+            nodes += len(graph_node_types(graphs._prefill_body))
+    whole = out["graphed"][1] == nodes
+    busy = out["graphed"][0] if whole else out["eager"][0]
+    odd = {e.key[:50]: e.count for e in out["graphed"][3]
+           if decode_only and e.count % steps}
+    log(f"busy share {name}: eager "
+        f"{100 * out['eager'][0] / 1e3 / out['eager'][2]:.1f}%, graphed "
+        f"{100 * busy / 1e3 / out['graphed'][2]:.1f}% ("
+        + ("a whole trace of the replays" if whole else
+           "the replays' trace is not whole, so the eager profile's device "
+           "ms over the graphed wall; the graphed trace's own: "
+           f"{100 * out['graphed'][0] / 1e3 / out['graphed'][2]:.1f}%")
+        + f"): {out['graphed'][1]} records against the graphs' {nodes} "
+        f"nodes ({nodes / steps if decode_only else nodes}"
+        f"{' per step' if decode_only else ''}), the eager loop's "
+        f"{out['eager'][1]}; records not a multiple of the steps: {odd}")
 
 
 def phase_ssm_serve(arch: str) -> tuple:
@@ -1784,15 +1969,13 @@ def phase_ssm_serve(arch: str) -> tuple:
                       str(PROMPT), "--new-tokens", str(NEW_TOKENS),
                       "--device", "cuda", "--seed", str(SEED)],
                      keep_logits=True)
-    launches = read_launches()
     cfg = res["cfg"]
     apps = n_attn_apps(cfg)
-    want = {k: 0 for k in launches}
+    want = {k: 0 for k in launch_counters()}
     want.update({"ssd_scan": cfg.n_layers, "flash_attention": apps,
                  "decode_attention": apps * (NEW_TOKENS - 1)})
-    log(f"  launches {launches} (expected {want})")
-    if launches != want:
-        raise AssertionError(f"launches {launches}, expected {want}")
+    launches = split_launches(res, want, warmup_launches(
+        want, {"ssd_scan": cfg.n_layers, "flash_attention": apps}))
     gen, logits = res["gen"], res["logits"]
     if tuple(gen.shape) != (BATCH, NEW_TOKENS) or len(logits) != NEW_TOKENS:
         raise AssertionError(f"generated {tuple(gen.shape)}, "
@@ -1961,9 +2144,13 @@ def phase_profile() -> None:
     the launcher's main path at full width (as phases 3, 8 and 11 run it,
     without their checks), then one warm run, then two profiled prefills
     and two profiled 31-step decode loops, every kernel's device time
-    summed (torch.profiler).  It calls only the launcher and the models,
-    so that a copy of this script in an earlier checkout measures that
-    checkout's kernels the same way."""
+    summed (torch.profiler), of the eager loop, and where the launcher
+    has step graphs (``res["graphs"]``), of their replays too, with each
+    loop's wall per prefill and per decode step (two warm runs) and the
+    host's time to queue one decode replay.  It
+    calls only the launcher and the models, so that a copy of this script
+    in an earlier checkout measures that checkout's kernels the same
+    way."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.launch import serve
@@ -1973,20 +2160,37 @@ def phase_profile() -> None:
                           str(NEW_TOKENS), "--device", "cuda", "--seed",
                           str(SEED)])
         model, params, tokens = res["model"], res["params"], res["tokens"]
-        _serve_once(model, params, tokens)
-        out = {}
-        for part, steps in (("prefill", 1), ("decode", NEW_TOKENS - 1)):
-            for _ in range(2):
-                prof = profile(activities=[ProfilerActivity.CUDA])
-                _serve_once(model, params, tokens,
-                            **{f"{part}_ctx": lambda: prof})
-                busy_us = sum(e.self_device_time_total
-                              for e in device_events(prof))
-                out.setdefault(part, []).append(busy_us / 1e3 / steps)
-        log(f"profile {arch}: device ms per prefill "
-            f"{[round(t, 3) for t in out['prefill']]}, per decode step "
-            f"{[round(t, 3) for t in out['decode']]}")
-        del res, model, params, tokens
+        loops = {"eager": lambda **kw: _serve_once(model, params, tokens,
+                                                    **kw)}
+        if res.get("graphs") is not None:
+            loops["graphed"] = lambda **kw: _serve_graphed(res["graphs"],
+                                                           tokens, **kw)
+        for loop, serve_fn in loops.items():
+            walls = [serve_fn() for _ in range(3)][1:]
+            out = {}
+            for part, steps in (("prefill", 1), ("decode", NEW_TOKENS - 1)):
+                for _ in range(2):
+                    prof = profile(activities=[ProfilerActivity.CUDA])
+                    serve_fn(**{f"{part}_ctx": lambda: prof})
+                    busy_us = sum(e.self_device_time_total
+                                  for e in device_events(prof))
+                    out.setdefault(part, []).append(busy_us / 1e3 / steps)
+            extra = ""
+            if loop == "graphed":
+                host = [replay_host_ms(res["graphs"], tokens)[0]
+                        for _ in range(2)]
+                extra = (f"; capture {res['capture_s'] * 1e3:.1f}ms; host ms "
+                         f"to queue a decode replay "
+                         f"{[round(h, 4) for h in host]}")
+            log(f"profile {arch} {loop}: device ms per prefill "
+                f"{[round(t, 3) for t in out['prefill']]}, per decode step "
+                f"{[round(t, 3) for t in out['decode']]}; wall ms per "
+                f"prefill {[round(w[0] * 1e3, 3) for w in walls]}, per "
+                f"decode step "
+                f"{[round(w[1] * 1e3 / (NEW_TOKENS - 1), 3) for w in walls]}"
+                + extra)
+        close_graphs(res)
+        del res, model, params, tokens, loops
         gc.collect()
         torch.cuda.empty_cache()
 
@@ -2132,6 +2336,7 @@ def main(argv) -> int:
     if parity_only:
         return 0
     res, launches = phase_serve()
+    phase_graph_hold(res)
     phase_reference(res)
     _, fanout_launches = phase_fanout()
     plane_launches = phase_device_plane()
@@ -2145,10 +2350,12 @@ def main(argv) -> int:
     rows = phase_timing(res, launches, errs)
     rows += phase_timing_state_push(launches, errs)
     phase_warm_serve(res)
+    close_graphs(res)
     del res                       # the qwen model leaves the card
     gc.collect()
     torch.cuda.empty_cache()
-    moe_res, moe_launches, routes = phase_moe_serve()
+    moe_res, moe_launches = phase_moe_serve()
+    routes = phase_graph_hold(moe_res, record_routes=True)
     phase_moe_reference(moe_res, routes)
     del routes
     rows += phase_timing_gmm(moe_res, moe_launches, errs)
@@ -2156,11 +2363,13 @@ def main(argv) -> int:
     rows += phase_timing_decode(moe_res, moe_launches["decode_attention"],
                                 errs)
     phase_warm_serve(moe_res, decode_only=True)
+    close_graphs(moe_res)
     del moe_res                   # the MoE model leaves the card
     gc.collect()
     torch.cuda.empty_cache()
     for arch in SSM_ARCHS:
         res, ssm_launches = phase_ssm_serve(arch)
+        phase_graph_hold(res)
         phase_ssm_witnesses(res, phase_reference(res))
         phase_ssm_sublayers(res)
         # one SSM model on the card at a time: time and profile it now
@@ -2171,6 +2380,7 @@ def main(argv) -> int:
             rows += phase_timing_decode(res, ssm_launches["decode_attention"],
                                         errs)
         phase_warm_serve(res, decode_only=True)
+        close_graphs(res)
         del res
         gc.collect()
         torch.cuda.empty_cache()

@@ -57,12 +57,17 @@ def check_operands(what: str, *tensors: torch.Tensor) -> None:
             raise ValueError(f"{what}: operand not 16-byte aligned")
 
 
+_LOGS = threading.local()     # the launch logs open on this thread
+
+
 class LaunchCounter:
     """Launches of one kernel by this process, in all and by a key the
     wrapper names (a kernel with several shapes on one path counts each).
     The runtime's executor threads call the wrappers concurrently, so the
     count is taken under a lock (``n += 1`` alone is a read-modify-write
-    that loses counts)."""
+    that loses counts).  A launch made while this thread captures a CUDA
+    graph (inside a capturing :class:`LaunchLog`) is not counted then:
+    the log adds it at each replay of the graph."""
 
     def __init__(self) -> None:
         self._lock = threading.Lock()
@@ -70,10 +75,17 @@ class LaunchCounter:
         self._by_key: dict = {}
 
     def add(self, key=None) -> None:
+        logs = getattr(_LOGS, "open", ())
+        for log in logs:
+            log._record(self, key)
+        if not any(log.capturing for log in logs):
+            self._add(key, 1)
+
+    def _add(self, key, n: int) -> None:
         with self._lock:
-            self._n += 1
+            self._n += n
             if key is not None:
-                self._by_key[key] = self._by_key.get(key, 0) + 1
+                self._by_key[key] = self._by_key.get(key, 0) + n
 
     def reset(self) -> None:
         with self._lock:
@@ -89,6 +101,45 @@ class LaunchCounter:
         """The launches counted under each key since the last reset."""
         with self._lock:
             return dict(self._by_key)
+
+
+class LaunchLog:
+    """The kernel launches this thread's wrappers make inside ``with log:``,
+    by counter and key.
+
+    With ``capturing`` (the body of a CUDA graph's capture) a launch is
+    recorded, not run, so it reaches no counter's total then;
+    :meth:`replay` adds the recorded launches once, by key, and is called
+    once per replay of the graph.  Without it (an eager warm-up) the
+    launches count as usual, and the log keeps a tally of its own."""
+
+    def __init__(self, capturing: bool = False) -> None:
+        self.capturing = capturing
+        self._n: dict = {}          # (counter, key) -> launches
+
+    def __enter__(self) -> "LaunchLog":
+        _LOGS.open = (*getattr(_LOGS, "open", ()), self)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        _LOGS.open = tuple(log for log in _LOGS.open if log is not self)
+
+    def _record(self, counter: LaunchCounter, key) -> None:
+        self._n[(counter, key)] = self._n.get((counter, key), 0) + 1
+
+    def replay(self) -> None:
+        for (counter, key), n in self._n.items():
+            counter._add(key, n)
+
+    def count(self, counter: LaunchCounter) -> int:
+        """The launches of ``counter``'s kernel in the log, all keys."""
+        return sum(n for (c, _), n in self._n.items() if c is counter)
+
+    def by_key(self, counter: LaunchCounter) -> dict:
+        """The launches of ``counter``'s kernel in the log, by key (as
+        :meth:`LaunchCounter.by_key`, which leaves out ``None``)."""
+        return {k: n for (c, k), n in self._n.items()
+                if c is counter and k is not None}
 
 
 def resolve_device(device) -> torch.device:
@@ -110,7 +161,9 @@ def dispatch(backend: str | None, x: torch.Tensor) -> str:
 
     Every kernel wrapper passes through here, which makes it the
     time-sliced cancellation checkpoint for long compute loops, as
-    ``repro.kernels.common.resolve_backend`` is."""
+    ``repro.kernels.common.resolve_backend`` is.  A CUDA graph's replay
+    runs no wrapper, so the code that replays one calls the checkpoint
+    itself, once per replay (``launch/step_graphs.py``)."""
     cancellation.checkpoint()
     b = backend or "auto"
     if b not in BACKENDS:

@@ -8,6 +8,11 @@ completion latch) and reports p50/p99 latency and batch throughput; with
 ``--state-wire`` each request also adds its token to the shared
 ``serve/stats`` vector and pushes the delta over that wire.
 
+On the card the serving loop replays CUDA graphs of its prefill and decode
+step, captured once (``launch/step_graphs.py``), as the reference calls
+its jitted steps; the fan-out's forward still runs op by op, since each
+call binds fresh parameters.
+
 Everything runs on the CUDA card (``--device cuda``, the default) and raises
 when there is none; the CPU runs only when asked for (``--device cpu``).
 """
@@ -21,17 +26,13 @@ import torch
 
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.kernels.common import resolve_device
+from repro_torch.launch.step_graphs import ServeGraphs, eager_generate, sync
 from repro_torch.models import ExecConfig, build_model
 from repro_torch.models.weights import numpy_to_torch, params_class
 from repro_torch.overload import DEADLINE_RC, SHED_RC
 from repro_torch.telemetry import clock as tclock
 from repro_torch.telemetry import metrics as tmetrics
 from repro_torch.telemetry import spans as tspans
-
-
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 def host_leaves(params: torch.nn.Module) -> Dict[str, torch.Tensor]:
@@ -87,7 +88,7 @@ def make_infer_function(model, leaves, prompt_len: int = 16,
     def _build_fwd():
         p = bind_params(model.cfg, leaves, device)
         fwd(p, torch.zeros((1, prompt_len), dtype=torch.int32, device=device))
-        _sync(device)
+        sync(device)
         return fwd
 
     def init(api):
@@ -100,7 +101,7 @@ def make_infer_function(model, leaves, prompt_len: int = 16,
         fwd_, _, _ = api.runtime.exec_cache.get_or_build(cache_key, _build_fwd)
         t0 = tclock.now()
         p = bind_params(model.cfg, state["params"], device)
-        _sync(device)
+        sync(device)
         api.runtime.metrics.histogram(
             "faasm_serve_param_h2d_ms",
             "per-call parameter copy to the device").observe(
@@ -316,9 +317,22 @@ def parser() -> argparse.ArgumentParser:
 def main(argv: Optional[List[str]] = None, keep_logits: bool = False) -> dict:
     """Run the serving loop (and the fan-out); returns what it produced.
 
+    On the card the loop runs as the reference's does, each step compiled
+    once: :class:`~repro_torch.launch.step_graphs.ServeGraphs` runs one
+    prefill and one decode step eagerly, captures each as a CUDA graph,
+    and then replays the prefill graph once and the decode graph once per
+    new token.  The warm-up and capture come before the timers start and
+    land in ``faasm_serve_graph_capture_ms``; the prefill and decode
+    timers time replays only.  That is the one difference kept from the
+    reference, whose first prefill includes its jit compile.  On the CPU
+    (``--device cpu``), which has no graphs, the loop runs op by op
+    (:func:`~repro_torch.launch.step_graphs.eager_generate`).
+
     The result holds the config, model, parameters, prompt ``tokens``
-    (B, S), the generated ids ``gen`` (B, new_tokens) and the prefill and
-    decode wall times; with ``--faasm-requests`` also ``faasm``, the
+    (B, S), the generated ids ``gen`` (B, new_tokens), the prefill and
+    decode wall times and ``graphs``, the ServeGraphs object (None on the
+    CPU; its ``close`` frees the graphs), with ``capture_s``, its warm-up
+    and capture time; with ``--faasm-requests`` also ``faasm``, the
     fan-out's dict (:func:`run_faasm_fanout`).  With ``keep_logits`` it
     also holds ``logits``, the (B, V) f32 logits that chose each generated
     token, in order."""
@@ -330,7 +344,10 @@ def main(argv: Optional[List[str]] = None, keep_logits: bool = False) -> dict:
         print(f"metrics: http://127.0.0.1:{args.metrics_port}/metrics")
     h_prefill = reg.histogram("faasm_serve_prefill_ms")
     h_decode = reg.histogram("faasm_serve_decode_ms")
-    sum0 = (h_prefill.sum, h_decode.sum)     # the registry outlives a call
+    h_capture = reg.histogram("faasm_serve_graph_capture_ms",
+                              "warm-up and capture of the step graphs")
+    # the registry outlives a call
+    sum0 = (h_prefill.sum, h_decode.sum, h_capture.sum)
 
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
     model = build_model(cfg, ExecConfig(backend="auto"))
@@ -343,47 +360,41 @@ def main(argv: Optional[List[str]] = None, keep_logits: bool = False) -> dict:
     tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, S)),
                              dtype=torch.int32, device=device)
 
-    cache = model.init_cache(B, max_len, device)
     tel = tspans.tracer()
-    _sync(device)
-    t0 = tclock.now()
-    logits, cache, n_total = model.prefill(params, tokens, cache)
-    tok = torch.argmax(logits, -1).to(torch.int32)
-    _sync(device)
-    t1 = tclock.now()
+    graphs = None
+    if device.type == "cuda":       # the compiled step, captured before t0
+        t0 = tclock.now()
+        graphs = ServeGraphs(model, params, B, S, max_len, device)
+        h_capture.observe((tclock.now() - t0) * 1e3)
+        run = graphs.generate(tokens, args.new_tokens, keep_logits)
+    else:
+        run = eager_generate(model, params, tokens, args.new_tokens,
+                             keep_logits)
+    t0, t1, t2 = run.stamps
     h_prefill.observe((t1 - t0) * 1e3)
+    h_decode.observe((t2 - t1) * 1e3)
     if tel is not None:
         tel.record("serve.prefill", "serve", t0, t1, arch=cfg.name, tokens=S)
-
-    out = [tok]
-    kept = [logits] if keep_logits else []
-    t0 = tclock.now()
-    for i in range(args.new_tokens - 1):
-        idx = torch.full((B,), n_total + i, dtype=torch.int32, device=device)
-        logits, cache = model.decode_step(params, tok, cache, idx)
-        tok = torch.argmax(logits, -1).to(torch.int32)
-        out.append(tok)
-        if keep_logits:
-            kept.append(logits)
-    _sync(device)
-    t1 = tclock.now()
-    h_decode.observe((t1 - t0) * 1e3)
-    if tel is not None:
-        tel.record("serve.decode", "serve", t0, t1, arch=cfg.name,
+        tel.record("serve.decode", "serve", t1, t2, arch=cfg.name,
                    steps=args.new_tokens - 1)
-    gen_ids = torch.stack(out, dim=1)
+    gen_ids = run.ids
     # the printed line reads the registry — the timers above are its only
     # writers, so the log and a scrape can never disagree
     prefill_s = (h_prefill.sum - sum0[0]) / 1e3
     decode_s = (h_decode.sum - sum0[1]) / 1e3
+    capture_s = (h_capture.sum - sum0[2]) / 1e3
+    if graphs is not None:
+        print(f"{cfg.name}: step graphs warmed up and captured in "
+              f"{capture_s * 1e3:.1f}ms")
     print(f"{cfg.name}: prefill {S} toks in {prefill_s * 1e3:.1f}ms; "
           f"{args.new_tokens - 1} decode steps in {decode_s * 1e3:.1f}ms "
           f"({(args.new_tokens - 1) * B / max(decode_s, 1e-9):.1f} tok/s)")
     print("generated ids[0]:", gen_ids[0][:12].cpu().numpy(), "...")
     result = {"cfg": cfg, "model": model, "params": params, "tokens": tokens,
-              "gen": gen_ids, "prefill_s": prefill_s, "decode_s": decode_s}
+              "gen": gen_ids, "prefill_s": prefill_s, "decode_s": decode_s,
+              "graphs": graphs, "capture_s": capture_s}
     if keep_logits:
-        result["logits"] = kept
+        result["logits"] = run.logits
 
     if args.faasm_requests > 0:
         r = run_faasm_fanout(model, params, cfg.vocab_size,

@@ -747,3 +747,130 @@ def test_device_replica_pull_applies_on_card(card):
     assert after.device.type == "cuda" and float(before.abs().max()) == 0.0
     torch.testing.assert_close(after, torch.full_like(after, 0.5),
                                atol=0.5 / 254, rtol=0)
+
+
+# -- the serving loop's compiled step (launch/step_graphs.py) ----------------
+
+GRAPH_ARCHS = ["qwen1.5-0.5b", "deepseek-moe-16b", "mamba2-130m",
+               "zamba2-1.2b"]
+
+
+def _kernel_counters():
+    return {"flash_attention": flash_ops.LAUNCHES,
+            "decode_attention": decode_ops.LAUNCHES,
+            "moe_gmm": gmm_ops.LAUNCHES, "ssd_scan": ssd_ops.LAUNCHES}
+
+
+def _read(counters):
+    return {k: (c.value, c.by_key()) for k, c in counters.items()}
+
+
+# a prompt long enough that K6 splits its cache (2 splits at the smoke
+# models' head dim 16), so its counters run in the graphs
+GRAPH_PROMPT = 300
+
+
+def _smoke_served(card, arch, B=2, S=GRAPH_PROMPT):
+    cfg = smoke_config(arch)
+    model = build_model(cfg, ExecConfig())
+    params = model.init(torch.Generator(device=card).manual_seed(0), card)
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (B, S)), dtype=torch.int32, device=card)
+    return model, params, tokens
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", GRAPH_ARCHS)
+def test_graphed_loop_equals_the_eager_loop_bitwise(card, arch):
+    """The captured prefill and decode graphs, replayed, give the eager
+    loop's ids and every step's logits bitwise (the same kernels in the
+    same order), launch counts equal to the eager loop's, by kernel and
+    key, and a warm-up of one prefill and one decode step; a second
+    ``generate`` replays the same graphs and gives the same ids.  The
+    cache has the eager loop's capacity, since K6's split plan (and so
+    its order of summation) follows the capacity."""
+    from repro_torch.launch.step_graphs import ServeGraphs, eager_generate
+    model, params, tokens = _smoke_served(card, arch)
+    new = 6
+    counters = _kernel_counters()
+    for c in counters.values():
+        c.reset()
+    eager_generate(model, params, tokens, 1)          # a prefill alone
+    prefill_only = _read(counters)
+    for c in counters.values():
+        c.reset()
+    want = eager_generate(model, params, tokens, new, keep_logits=True)
+    eager_counts = _read(counters)
+    S = GRAPH_PROMPT
+    graphs = ServeGraphs(model, params, 2, S, S + new, card)
+    warm = {k: graphs.warmup_launches.count(c) for k, c in counters.items()}
+    per_step = {k: (eager_counts[k][0] - prefill_only[k][0]) // (new - 1)
+                for k in counters}
+    assert warm == {k: prefill_only[k][0] + per_step[k] for k in counters}
+    steps = dict(graphs._steps)
+    for c in counters.values():
+        c.reset()
+    got = graphs.generate(tokens, new, keep_logits=True)
+    assert _read(counters) == eager_counts
+    assert graphs.replays == {"prefill": 1, "decode": new - 1}
+    assert torch.equal(got.ids, want.ids)
+    assert len(got.logits) == new
+    for i, (a, b) in enumerate(zip(got.logits, want.logits)):
+        assert torch.equal(a, b), f"step {i}"
+    again = graphs.generate(tokens, new)
+    assert torch.equal(again.ids, want.ids)
+    assert graphs._steps == steps
+    assert graphs.replays == {"prefill": 2, "decode": 2 * (new - 1)}
+    graphs.close()
+
+
+@pytest.mark.cuda
+def test_a_step_that_syncs_inside_capture_raises_with_no_eager_loop(
+        card, monkeypatch):
+    """A decode step that reads a value on the host (legal eagerly, not in
+    a capture) makes the launcher raise; the eager loop never runs."""
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer
+    real = transformer.decode_step
+
+    def syncing(*args):
+        logits, cache = real(*args)
+        float(logits.sum())
+        return logits, cache
+
+    eager = []
+    monkeypatch.setattr(transformer, "decode_step", syncing)
+    monkeypatch.setattr(serve, "eager_generate",
+                        lambda *a, **kw: eager.append(a))
+    with pytest.raises(RuntimeError):
+        serve.main(["--smoke", "--batch", "2", "--new-tokens", "4",
+                    "--device", "cuda"])
+    assert eager == []
+
+
+@pytest.mark.cuda
+def test_capture_with_no_warm_up_on_its_stream_raises_k6s_error(
+        card, monkeypatch):
+    """Without an eager decode step on the capture stream, K6 has no
+    counters for that stream, and it refuses to make them inside the
+    capture (their zeros would wait for a replay)."""
+    from repro_torch.launch import step_graphs
+    model, params, tokens = _smoke_served(card, "qwen1.5-0.5b")
+    step_graphs.eager_generate(model, params, tokens, 3)  # kernels loaded
+    capture = step_graphs.CudaCapture(torch.device(card))
+    dev = torch.device(card).index or 0
+    monkeypatch.delitem(decode_ops._COUNTERS,   # a pooled stream may have
+                        (dev, capture.stream.cuda_stream),   # a set already
+                        raising=False)
+    real = step_graphs.ServeGraphs._decode_body
+
+    def captured_only(self):
+        if torch.cuda.is_current_stream_capturing():
+            real(self)
+
+    monkeypatch.setattr(step_graphs.ServeGraphs, "_decode_body",
+                        captured_only)
+    with pytest.raises(RuntimeError, match="no counters for this shape on "
+                                           "the capture stream"):
+        step_graphs.ServeGraphs(model, params, 2, GRAPH_PROMPT,
+                                GRAPH_PROMPT + 6, card, capture=capture)
