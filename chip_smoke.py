@@ -38,19 +38,31 @@ Phases, each fatal on failure:
 4. reference: feed the same prompt and the generated tokens (teacher
    forcing) through the plain path (``backend="torch"``) and compare the
    logits of every step;
-5. fan-out: ``serve.main`` with ``--faasm-requests 64 --state-wire int8``:
-   every request a Faaslet call of the port's runtime, running the forward
-   pass (K5) and pushing the shared serve/stats vector over the int8 wire
-   (K1), counters zeroed just before; every request must succeed, K1 launch
-   once per push and K5 24 times per forward (the serving loop's graph
-   warm-up, one prefill and one decode step, held apart), the stats equal the token
-   histogram within the int8 bound, and the tokens the plain path's argmax
-   (one forward per prompt, as the fan-out runs it) in at least 90% of the
-   requests; then one call's parameter copy and forward timed alone;
+5. fan-out, for qwen1.5-0.5b and then mamba2-130m: ``serve.main`` with
+   ``--faasm-requests 64 --state-wire int8``: every request a Faaslet
+   call of the port's runtime that copies its parameters from pinned
+   leaves into an executor slot's buffers and replays that slot's
+   captured forward (K5 or K8), then pushes the shared serve/stats vector
+   over the int8 wire (K1), counters zeroed just before; every request
+   must succeed; the launches are held exactly: the serving loop's
+   warm-up and the fan-out's warm-ups before each capture read apart,
+   one forward's launches (K5 24, or K8 24) per replay, one replay per
+   call and one for the build, K1 once per push; the stats equal the
+   token histogram within the int8 bound, the tokens the plain path's
+   argmax (one forward per prompt, as the fan-out runs it) in at least
+   90% of the requests and the kernel path's eager forward bitwise in
+   all; req/s, p50/p99, the per-call copy (CUDA events on the slot's
+   stream) and the capture time are logged, beside a 16-request wave of
+   the eager fan-out (pageable leaves, the forward op by op) and one
+   graphed call alone; then the Fig. 7 twin
+   (``examples/inference_serving_torch.py``) at full width, 12 requests,
+   both isolation modes and cold ratios: a container cold start must
+   capture the forward again, a Faaslet cold start must not;
 6. device plane: two hosts of the runtime; one pushes from a device
    replica (K1 on device tensors), the other's device replica catches up
    through a delta pull (K2);
 7. timing: each kernel's device time per call at the main path's shapes
+   (K5 and K8 also at the fan-out's (1, 16) forward)
    (torch.profiler's CUDA trace; back-to-back call time by CUDA events is
    logged beside it) with its plain version's, that of one PyTorch library
    call computing the same function where there is one (a yardstick the
@@ -139,6 +151,9 @@ and sorted-prefill shapes beside its plain version and ``grouped_mm``
 taken in turn), times each of its bf16 kernels forced at those shapes and
 at a sweep of T (the evidence for the wrapper's threshold between them)
 with its host time per call, and stops.  ``python3 chip_smoke.py
+fanout`` builds, holds K5 and K8 against their plain versions, runs
+phase 5 and times K5 and K8 at the fan-out's shape, and stops.  ``python3
+chip_smoke.py
 decode`` holds the attention kernels against their plain versions, times
 K6 at the three served decode shapes beside SDPA (on one cache, and over
 8 caches taken in turn so that each call reads HBM), lists the kernels one
@@ -183,6 +198,8 @@ SSD_TOL = {"float32": 1e-4, "bfloat16": 3e-2}   # the reference's ssd, bf16
 LOGIT_TOL = 5e-2                            # bf16 model tolerance (atol = rtol)
 MIN_ARGMAX_AGREEMENT = 0.9                  # bf16 near-ties may flip a few
 FANOUT_REQUESTS, FANOUT_WARM = 64, 8       # the wave; the launcher's warm-up
+FANOUT_EAGER = 16                           # the eager wave beside it
+FIG7_REQUESTS = 12                          # the Fig. 7 twin's requests
 STATS_NUMEL = 151_936                       # serve/stats: the vocabulary
 SP_BIG = 16 << 20                           # the state-push timing's 16 Mi
 INT8_STEP = 1.01 / 127                      # int8 bound per unit push
@@ -211,6 +228,7 @@ FLASH_CASES = [
 # the bf16 parity case whose error each timing row of K5 reports
 FLASH_ROWS = {
     (4, 512, 512, 16, 16, 64, True, 0): "flash_attention",
+    (1, 16, 16, 16, 16, 64, True, 0): "flash_attention[fan-out]",
     (4, 512, 512, 16, 16, 128, True, 0): f"flash_attention[{MOE_ARCH}]",
     (4, 512, 512, 32, 32, 64, True, 0): f"flash_attention[{SSM_ARCHS[1]}]",
 }
@@ -629,6 +647,7 @@ SSD_CASES = [
     ("S 20 (chunk 32)", 2, 20, 8, 64, 1, 64, True),
     ("16 chunks", 1, 4096, 8, 64, 1, 64, True),
     ("G 2", 2, 300, 8, 32, 2, 32, True),
+    ("mamba2-130m fan-out", 1, 16, 24, 64, 1, 128, False),
 ]
 
 
@@ -707,7 +726,9 @@ def phase_parity_ssd() -> dict:
             tol = SSD_TOL["bfloat16"]      # summation order, see the docstring
         what = (f"K8 {dtype} {name}: Bt{Bt} S{S} H{H} P{P} G{G} N{N}, "
                 f"{decays} decays")
-        yc, fc = ssd_chunked(x, dt, A, B, C, D, st, _ssd_chunk(S))
+        yc, fc = ssd_chunked(x, dt, A, B, C, D, st if init else
+                             torch.zeros(Bt, H, P, N, device="cuda"),
+                             _ssd_chunk(S))
         yr, fr = ssd_ref(x, dt, A, B, C, D, initial_state=st)
         torch.cuda.synchronize()
         if decays == "model" and dtype == torch.float32:
@@ -722,10 +743,12 @@ def phase_parity_ssd() -> dict:
                     SSD_TOL["float32"] if decays != "model" else tol)
         check_close(what + ", y vs oracle", y, yr, tol)
         if dtype == torch.bfloat16 and decays == "reference":
-            if name.startswith("mamba2"):
+            if name == "mamba2-130m prefill":
                 errs["ssd_scan"] = err
             elif name.startswith("zamba2"):
                 errs["ssd_scan[zamba2-1.2b]"] = err
+            elif name.endswith("fan-out"):
+                errs["ssd_scan[fan-out]"] = err
     return errs
 
 
@@ -986,6 +1009,26 @@ def phase_timing_decode(res, launches: int, errs) -> list:
     return [row]
 
 
+def phase_timing_fanout(qwen_launches, ssm_launches, errs) -> list:
+    """K5 and K8 at the fan-out's (1, 16) forward (qwen1.5-0.5b's and
+    mamba2-130m's), with each fan-out's launches (its warm-ups and
+    replays)."""
+    import torch
+    from repro_torch.configs import get_config
+    cfg = get_config(ARCH)
+    H, K, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    name = "flash_attention[fan-out]"
+    g = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    row, back_to_back, how = _flash_row(
+        name, 1, 16, H, K, D, {name: qwen_launches["flash_attention"]},
+        errs, g)
+    _log_flash_row(row, back_to_back, how, f"the fan-out's forward (B 1 "
+                   f"S 16 H {H} K {K} D {D})")
+    return [row] + phase_timing_ssd(
+        {"cfg": get_config(SSM_ARCHS[0])}, ssm_launches["ssd_scan"], errs,
+        Bt=1, S=16, name="ssd_scan[fan-out]")
+
+
 def phase_timing(res, launches, errs) -> list:
     """K5 and K6 at qwen1.5-0.5b's prefill and last decode step."""
     rows = phase_timing_flash(res, launches["flash_attention"], errs)
@@ -1084,49 +1127,141 @@ def phase_parity_state_push() -> dict:
     return errs
 
 
-def phase_fanout() -> tuple:
+def _per_forward(cfg) -> dict:
+    """The kernels one (1, 16) forward of ``cfg`` launches: K5 once per
+    attention layer, K8 once per Mamba layer."""
+    return {"ssd_scan" if cfg.ssm_state else "flash_attention": cfg.n_layers}
+
+
+def _times(lat_ms) -> str:
+    import numpy as np
+    lat = np.asarray(lat_ms)
+    return (f"p50 {np.percentile(lat, 50):.1f}ms, p99 "
+            f"{np.percentile(lat, 99):.1f}ms")
+
+
+def eager_fanout(res, leaves, payloads) -> dict:
+    """The fan-out as it ran before its forward was captured, beside the
+    graphed one: each call binds its parameters from pageable host leaves
+    (``serve.bind_params``) and runs the forward op by op, on a stream of
+    its own (so that CUDA events time its copy and forward alone), then
+    pushes its token to serve/stats over the int8 wire.  FANOUT_WARM calls
+    first, then ``payloads`` timed as one wave."""
+    import numpy as np
+    import torch
+    from repro_torch.core import FaasmRuntime, FunctionDef
+    from repro_torch.launch import serve
+    from repro_torch.state.ddo import VectorAsync
+    model, cfg = res["model"], res["cfg"]
+    times = []
+
+    def infer(api):
+        leaves_ = api.host.user_state(api.faaslet)["params"]
+        tokens = torch.from_numpy(np.frombuffer(
+            api.read_call_input(), np.int32).reshape(1, -1).copy())
+        stream = torch.cuda.Stream()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        with torch.cuda.stream(stream), torch.no_grad():
+            ev[0].record()
+            p = serve.bind_params(cfg, leaves_, torch.device("cuda"))
+            ev[1].record()
+            tok = int(model.logits(p, tokens.cuda())[0, -1].argmax())
+            ev[2].record()
+        ev[2].synchronize()
+        times.append((ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])))
+        stats = VectorAsync(api, "serve/stats")
+        stats.pull(track_delta=True)
+        stats.add([tok], 1.0)
+        stats.push_delta(wire="int8")
+        api.write_call_output(np.int32(tok).tobytes())
+        return 0
+
+    rt = FaasmRuntime(n_hosts=1, capacity=FANOUT_WARM, device="cuda")
+    try:
+        VectorAsync.create(rt.global_tier, "serve/stats",
+                           np.zeros(cfg.vocab_size, np.float32))
+        rt.upload(FunctionDef("infer", infer,
+                              init_fn=lambda api: {"params": leaves}))
+        hint = ["serve/stats"]
+        warm = rt.invoke_many("infer", payloads[:FANOUT_WARM],
+                              state_hint=hint)
+        if rt.wait_all(warm, timeout=300) != [0] * FANOUT_WARM:
+            raise AssertionError("eager fan-out: a warm-up call failed")
+        del times[:]
+        t0 = time.perf_counter()
+        cids = rt.invoke_many("infer", payloads, state_hint=hint)
+        rcs = rt.wait_all(cids, timeout=600)
+        wall = time.perf_counter() - t0
+        if rcs != [0] * len(payloads):
+            raise AssertionError(f"eager fan-out return codes {rcs}")
+        lat = [rt.call(c).latency * 1e3 for c in cids]
+        tokens = [int(np.frombuffer(rt.output(c), np.int32)[0]) for c in cids]
+    finally:
+        rt.shutdown()
+    h2d = float(np.mean([t[0] for t in times]))
+    return {"rps": len(payloads) / wall, "lat_ms": lat, "tokens": tokens,
+            "h2d_ms": h2d, "forward_ms": float(np.mean([t[1] for t in times]))}
+
+
+def phase_fanout(arch: str) -> tuple:
     """The launcher's Faasm fan-out at full width: every request a Faaslet
-    call of the port's runtime (forward through K5, serve/stats over the
-    int8 wire through K1)."""
+    call of the port's runtime, replaying a captured forward (K5 or K8) on
+    parameters copied from pinned leaves, serve/stats over the int8 wire
+    (K1); then a short eager wave beside it and one call alone.  Returns
+    (the fan-out's dict, its launches less the serving loop's)."""
     import numpy as np
     import torch
     from repro_torch.launch import serve
+    from repro_torch.launch.call_graphs import CallGraphs
     from repro_torch.models import ExecConfig, build_model
-    log(f"fan-out: {ARCH} full width, {FANOUT_REQUESTS} requests of 16 "
-        f"tokens, serve/stats on the int8 wire")
+    log(f"fan-out: {arch} full width, {FANOUT_REQUESTS} requests of 16 "
+        f"tokens, serve/stats on the int8 wire, each call a replay")
+    t0 = time.perf_counter()
     reset_launches()
-    res = serve.main(["--arch", ARCH, "--batch", "1", "--prompt-len", "16",
+    res = serve.main(["--arch", arch, "--batch", "1", "--prompt-len", "16",
                       "--new-tokens", "2", "--faasm-requests",
                       str(FANOUT_REQUESTS), "--state-wire", "int8",
                       "--device", "cuda", "--seed", str(SEED)])
     torch.cuda.synchronize()
-    launches = read_launches()
+    total = read_launches()
     cfg, r = res["cfg"], res["faasm"]
-    # the serving loop's warm-up (one prefill and one decode step before
-    # its graphs are captured) is reported apart and held exactly
-    warm = {k: res["graphs"].warmup_launches.count(c)
-            for k, c in launch_counters().items()}
+    counters = launch_counters()
+    zero = {k: 0 for k in counters}
+    # the serving loop at batch 1: its warm-up (one prefill and one decode
+    # step) and its replays (one prefill, one decode step) launch alike
+    per_step = dict(zero, **_per_forward(cfg))
+    if not cfg.ssm_state:
+        per_step["decode_attention"] = cfg.n_layers
+    loop_warm = {k: res["graphs"].warmup_launches.count(c)
+                 for k, c in counters.items()}
+    fan_warm = {k: r["warmup_launches"].count(c) for k, c in counters.items()}
     close_graphs(res)
-    log(f"  launches of the serving loop's warm-up {warm}")
-    if {k: n for k, n in warm.items() if n} != {
-            "flash_attention": cfg.n_layers,
-            "decode_attention": cfg.n_layers}:
-        raise AssertionError(f"warm-up launches {warm}")
-    launches = {k: n - warm[k] for k, n in launches.items()}
+    log(f"  launches of the serving loop's warm-up {loop_warm}; of the "
+        f"fan-out's {r['captures']} warm-ups before capture {fan_warm}")
+    if loop_warm != per_step:
+        raise AssertionError(f"serving loop warm-up launches {loop_warm}")
+    per_fwd = dict(zero, **_per_forward(cfg))
+    if fan_warm != {k: n * r["captures"] for k, n in per_fwd.items()}:
+        raise AssertionError(f"fan-out warm-up launches {fan_warm}")
     if r["shed"] or r["deadline_expired"] or None in r["tokens"]:
         raise AssertionError(f"fan-out: not every request served: shed "
                              f"{r['shed']}, expired {r['deadline_expired']}")
     calls = FANOUT_REQUESTS + FANOUT_WARM
-    # the serve loop's prefill, the forward's warm-up build, every call
-    want_flash = cfg.n_layers * (2 + calls)
-    log(f"  launches less the warm-up's {launches}; expected "
-        f"flash_attention {want_flash} "
-        f"({cfg.n_layers} per forward), quantize_delta >= {calls} (one per "
-        f"push)")
-    if launches["flash_attention"] != want_flash or \
-            launches["decode_attention"] != cfg.n_layers or \
-            launches["state_push.quantize_delta"] < calls:
-        raise AssertionError(f"fan-out launches {launches}")
+    # every call replays once, and so does the build's warm call
+    if r["replays"] != calls + 1 or not \
+            1 <= r["captures"] == r["slots"] <= FANOUT_WARM:
+        raise AssertionError(f"replays {r['replays']} (expected "
+                             f"{calls + 1}), captures {r['captures']}, "
+                             f"slots {r['slots']}")
+    replayed = {k: total[k] - loop_warm[k] - fan_warm[k] for k in total}
+    want = {k: per_step[k] + per_fwd[k] * r["replays"] for k in zero}
+    log(f"  launches less the warm-ups' {replayed}; expected {want} with "
+        f"state_push.quantize_delta >= {calls} (one per push)")
+    k1 = "state_push.quantize_delta"
+    if replayed[k1] < calls or \
+            {k: n for k, n in replayed.items() if k != k1} != \
+            {k: n for k, n in want.items() if k != k1}:
+        raise AssertionError(f"fan-out launches {replayed}")
     tokens = r["tokens"] + r["warm_tokens"]
     hist = np.bincount(tokens, minlength=cfg.vocab_size).astype(np.float32)
     err = float(np.abs(r["stats"] - hist).max())
@@ -1135,43 +1270,91 @@ def phase_fanout() -> tuple:
         f"max |err| {err:.3e} (int8 bound {bound:.3e})")
     if r["stats"].shape != (cfg.vocab_size,) or err > bound:
         raise AssertionError(f"serve/stats off the token histogram by {err}")
-    # the plain path's argmax for each prompt, one (1, 16) forward each as
-    # the fan-out runs it (a batched forward would round its GEMMs apart)
+    # each prompt's token by one (1, 16) forward on the card, as a call
+    # runs it: the plain path's argmax (a batched forward would round its
+    # GEMMs apart), and the kernel path's eager forward, which the
+    # replayed graph must equal bitwise
     payloads = serve.fanout_payloads(cfg.vocab_size, FANOUT_REQUESTS, 16)
+    prompts = [torch.tensor(np.frombuffer(p, np.int32)[None], device="cuda")
+               for p in payloads]
     plain = build_model(cfg, ExecConfig(backend="torch"))
     with torch.no_grad():
-        want = [int(plain.logits(res["params"], torch.tensor(
-                    np.frombuffer(p, np.int32)[None], device="cuda")
-                )[0, -1].argmax()) for p in payloads]
-    agree = float(np.mean(np.asarray(want) == np.asarray(r["tokens"])))
-    log(f"  tokens vs the plain path's argmax: {agree:.3f} agree")
+        want_plain = [int(plain.logits(res["params"], t)[0, -1].argmax())
+                      for t in prompts]
+        want_eager = [int(res["model"].logits(res["params"], t)[0, -1]
+                          .argmax()) for t in prompts]
+    agree = float(np.mean(np.asarray(want_plain) == np.asarray(r["tokens"])))
+    same = sum(a == b for a, b in zip(want_eager, r["tokens"]))
+    log(f"  tokens vs the plain path's argmax: {agree:.3f} agree; vs the "
+        f"kernel path's eager call: {same} of {FANOUT_REQUESTS} equal")
     if agree < MIN_ARGMAX_AGREEMENT:
         raise AssertionError(f"fan-out token agreement {agree:.3f}")
-    log(f"  {r['throughput_rps']:.2f} req/s, p50 {r['p50_ms']:.1f}ms, "
-        f"p99 {r['p99_ms']:.1f}ms; per call {r['infer_ms']:.1f}ms of which "
-        f"parameter H2D {r['param_h2d_ms']:.1f}ms "
-        f"({100 * r['param_h2d_ms'] / r['infer_ms']:.1f}%); state_push_mb "
-        f"{r['state_push_mb']:.3f}")
-    # one call's two parts alone, with no other call on the card: what the
-    # eight-way concurrency of the wave stretches
+    if same != FANOUT_REQUESTS:
+        raise AssertionError("a replayed call's token differs from the "
+                             "eager call's")
+    gbps = r["param_bytes"] / r["param_h2d_ms"] / 1e6
+    log(f"  graphed: {r['throughput_rps']:.2f} req/s, p50 {r['p50_ms']:.1f}"
+        f"ms, p99 {r['p99_ms']:.1f}ms; per call (CUDA events on its slot's "
+        f"stream, 8 at once) parameter copy {r['param_h2d_ms']:.2f}ms "
+        f"({r['param_bytes'] / 1e9:.3f} GB, {gbps:.2f} GB/s), replay + "
+        f"token {r['forward_ms']:.3f}ms, serve/stats push "
+        f"{r['stats_ms']:.1f}ms, body {r['infer_ms']:.1f}ms; "
+        f"{r['captures']} captures in {r['capture_ms']:.1f}ms (host, warm-up "
+        f"and capture; {r['capture_ms'] / r['captures']:.1f}ms each); "
+        f"state_push_mb {r['state_push_mb']:.3f}")
+    # the same prompts through the eager fan-out, on a short wave
     leaves = serve.host_leaves(res["params"])
-    nbytes = sum(x.numel() * x.element_size() for x in leaves.values())
-    tokens = torch.tensor(np.frombuffer(payloads[0], np.int32)[None],
-                          device="cuda")
-    for _ in range(2):                       # the second of two, warm
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        p = serve.bind_params(cfg, leaves, torch.device("cuda"))
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        with torch.no_grad():
-            int(res["model"].logits(p, tokens)[0, -1].argmax())
-        t2 = time.perf_counter()
-        del p
-    log(f"  one call alone: parameter H2D {(t1 - t0) * 1e3:.1f}ms "
-        f"({nbytes / 1e9:.3f} GB, {nbytes / (t1 - t0) / 1e9:.2f} GB/s), "
-        f"forward + argmax {(t2 - t1) * 1e3:.1f}ms")
-    return r, launches
+    e = eager_fanout(res, leaves, payloads[:FANOUT_EAGER])
+    same = sum(a == b for a, b in zip(e["tokens"], want_eager))
+    log(f"  eager ({FANOUT_EAGER} requests, pageable leaves): "
+        f"{e['rps']:.2f} req/s, {_times(e['lat_ms'])}; per call parameter "
+        f"copy {e['h2d_ms']:.2f}ms ({r['param_bytes'] / e['h2d_ms'] / 1e6:.2f}"
+        f" GB/s), forward + argmax {e['forward_ms']:.2f}ms; tokens equal to "
+        f"the eager call's: {same} of {FANOUT_EAGER}")
+    # one graphed call alone, with no other call on the card
+    graphs = CallGraphs(res["model"], 1, "cuda")
+    pinned = serve.HostLeaves(leaves, pin=True)
+    prompt = np.frombuffer(payloads[0], np.int32)[None]
+    alone = [graphs(pinned, prompt) for _ in range(3)][1:]
+    graphs.close()
+    log(f"  one graphed call alone (two, warm): parameter copy "
+        f"{[round(a.h2d_ms, 3) for a in alone]}ms "
+        f"({[round(r['param_bytes'] / a.h2d_ms / 1e6, 2) for a in alone]} "
+        f"GB/s), replay + token {[round(a.forward_ms, 3) for a in alone]}ms")
+    del res, pinned, leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  fan-out {arch} in {time.perf_counter() - t0:.1f}s")
+    return r, {k: total[k] - loop_warm[k] - per_step[k] for k in total}
+
+
+def phase_fig7() -> None:
+    """The Fig. 7 twin (``examples/inference_serving_torch.py``) at full
+    width, 12 requests, both isolation modes and cold ratios: a container
+    cold start must have captured the forward again and a Faaslet cold
+    start not; every run serves the same prompts, so the same tokens."""
+    sys.path.insert(0, str(ROOT / "examples"))
+    import inference_serving_torch as twin
+    log(f"fig7: {ARCH} full width, {FIG7_REQUESTS} requests, faaslet and "
+        f"container isolation, cold ratios 0 and 0.2")
+    t0 = time.perf_counter()
+    results = twin.main(["--requests", str(FIG7_REQUESTS), "--arch", ARCH])
+    for r in results:
+        log(f"  [{r['mode']} cold={r['cold_ratio']:.0%}] cold starts "
+            f"{r['cold_starts']}, cache builds {r['misses']}, captures "
+            f"{r['captures']} in {r['capture_ms']:.1f}ms; forced cold "
+            f"starts: captures {r['cold_captures']}, ms "
+            f"{[round(t, 1) for t in r['cold_ms']]}")
+    by = {(r["mode"], r["cold_ratio"]): r for r in results}
+    container, faaslet = by["container", 0.2], by["faaslet", 0.2]
+    if not container["cold_captures"] or \
+            min(container["cold_captures"]) < 1:
+        raise AssertionError("a container cold start did not capture")
+    if not faaslet["cold_captures"] or max(faaslet["cold_captures"]) != 0:
+        raise AssertionError("a Faaslet cold start captured")
+    if any(r["tokens"] != results[0]["tokens"] for r in results):
+        raise AssertionError("the Fig. 7 runs served different tokens")
+    log(f"  fig7 in {time.perf_counter() - t0:.1f}s")
 
 
 def phase_device_plane() -> dict:
@@ -2083,9 +2266,11 @@ def phase_ssm_sublayers(res) -> None:
         raise AssertionError(f"sublayers outside tolerance: {bad}")
 
 
-def phase_timing_ssd(res, launches: int, errs) -> list:
-    """K8 at an SSM model's prefill shape (one Mamba layer's call: bf16
-    x, B, C, zero initial state, the models' own decays): device time
+def phase_timing_ssd(res, launches: int, errs, Bt: int = BATCH,
+                     S: int = PROMPT, name: str = None) -> list:
+    """K8 at an SSM model's prefill shape, (``Bt``, ``S``) (one Mamba
+    layer's call: bf16 x, B, C, zero initial state, the models' own
+    decays), as row ``name`` (by default named by the model): device time
     (profiler), plain version, bound, and the launcher's grids.  No one
     PyTorch call computes the SSD scan, so there is no library time.  The
     bound's operations count the causal half (j <= i) of the intra-chunk
@@ -2104,21 +2289,23 @@ def phase_timing_ssd(res, launches: int, errs) -> list:
     g = torch.Generator(device="cuda").manual_seed(SEED + 7)
     cfg = res["cfg"]
     H, P, G, N = cfg.ssm_nheads, cfg.ssm_headdim, cfg.ssm_ngroups, cfg.ssm_state
-    Q = min(cfg.ssm_chunk, _ssd_chunk(PROMPT))
-    x, dt, A, B, C, D, _ = _ssd_inputs(g, BATCH, PROMPT, H, P, G, N,
+    Q = min(cfg.ssm_chunk, _ssd_chunk(S))
+    x, dt, A, B, C, D, _ = _ssd_inputs(g, Bt, S, H, P, G, N,
                                        torch.bfloat16, "model", False)
-    nc = -(-PROMPT // Q)
+    nc = -(-S // Q)
     nbytes = (2 * x.numel() + 4 * dt.numel() + 2 * (B.numel() + C.numel())
-              + 8 * H + 4 * BATCH * H * P * N          # A, D, initial state
-              + 2 * x.numel() + 4 * BATCH * H * P * N)  # y, final state
+              + 8 * H + 4 * Bt * H * P * N             # A, D, initial state
+              + 2 * x.numel() + 4 * Bt * H * P * N)     # y, final state
     pairs = Q * (Q + 1) // 2
-    flops_cb = BATCH * G * nc * 2 * pairs * N
-    flops_intra = BATCH * H * nc * 2 * pairs * P      # (C·Bᵀ ⊙ L)·(dt·x)
-    flops_state = BATCH * H * nc * 4 * Q * N * P      # C·stateᵀ, the update
+    flops_cb = Bt * G * nc * 2 * pairs * N
+    flops_intra = Bt * H * nc * 2 * pairs * P         # (C·Bᵀ ⊙ L)·(dt·x)
+    flops_state = Bt * H * nc * 4 * Q * N * P         # C·stateᵀ, the update
     bf16 = B.dtype == torch.bfloat16
     cb_rate = BF16_FLOP_PER_S if bf16 else FP32_FLOP_PER_S
     products = 3 * flops_intra + (2 if bf16 else 3) * flops_state
-    name = "ssd_scan" if cfg.name == SSM_ARCHS[0] else f"ssd_scan[{cfg.name}]"
+    if name is None:
+        name = ("ssd_scan" if cfg.name == SSM_ARCHS[0]
+                else f"ssd_scan[{cfg.name}]")
     kernel = lambda: ssd(x, dt, A, B, C, D, chunk=cfg.ssm_chunk)
     row = _row(name, "src/repro_torch/kernels/csrc/ssd_scan.cu",
                "src/repro/kernels/ssd_scan/kernel.py:76", {name: launches},
@@ -2127,11 +2314,11 @@ def phase_timing_ssd(res, launches: int, errs) -> list:
                                      backend="torch"), iters=5),
                None, nbytes, [(flops_cb, cb_rate),
                               (products, TF32_FLOP_PER_S)])
-    log(f"timing, K8 at {cfg.name}'s prefill (Bt {BATCH} S {PROMPT} H {H} "
+    log(f"timing, K8 at {name}: {cfg.name}'s prefill (Bt {Bt} S {S} H {H} "
         f"P {P} N {N} Q {Q}; C·Bᵀ {flops_cb / 1e9:.3f} GFLOP, f32 "
         f"{(flops_intra + flops_state) / 1e9:.2f} GFLOP ({products / 1e9:.2f}"
         f" as TF32 products), {nbytes / 1e6:.1f} MB; blocks (C·Bᵀ, state, "
-        f"pass, outputs) {ssd_grids(BATCH, PROMPT, H, P, G, N, Q)}): "
+        f"pass, outputs) {ssd_grids(Bt, S, H, P, G, N, Q)}): "
         f"{row['ms'] * 1e3:.1f}us device, back-to-back "
         f"{call_ms(kernel) * 1e3:.1f}us, bound {row['bound_ms'] * 1e3:.1f}us "
         f"({row['bound_by']}), plain {row['plain_ms'] * 1e3:.1f}us, library "
@@ -2289,9 +2476,9 @@ def main(argv) -> int:
     sys.path.insert(0, str(SRC))
     mode = argv[0] if argv else None
     if mode not in (None, "parity", "flash", "gmm", "decode", "ssd",
-                    "profile") or len(argv) > 1:
+                    "profile", "fanout") or len(argv) > 1:
         print(f"chip_smoke: arguments {argv}: none, or one of parity, flash, "
-              f"gmm, decode, ssd, profile", file=sys.stderr)
+              f"gmm, decode, ssd, profile, fanout", file=sys.stderr)
         return 2
     parity_only = mode == "parity"        # a new kernel's first, short run
     flash_only = mode == "flash"          # K5 alone: A/B of its designs
@@ -2330,6 +2517,14 @@ def main(argv) -> int:
         phase_gmm_ab(errs)
         log(smi)
         return 0
+    if mode == "fanout":                  # the fan-outs and Fig. 7 alone
+        errs.update(phase_parity_ssd())
+        qwen = phase_fanout(ARCH)[1]
+        ssm = phase_fanout(SSM_ARCHS[0])[1]
+        phase_fig7()
+        phase_timing_fanout(qwen, ssm, errs)
+        log(smi)
+        return 0
     errs.update(phase_parity_state_push())
     errs.update(phase_parity_gmm())
     errs.update(phase_parity_ssd())
@@ -2338,7 +2533,9 @@ def main(argv) -> int:
     res, launches = phase_serve()
     phase_graph_hold(res)
     phase_reference(res)
-    _, fanout_launches = phase_fanout()
+    _, fanout_launches = phase_fanout(ARCH)
+    _, ssm_fanout_launches = phase_fanout(SSM_ARCHS[0])
+    phase_fig7()
     plane_launches = phase_device_plane()
     # each kernel's launches from the run of its path: K5/K6 the serve
     # loop, K1 the fan-out, K2 the device plane; K3 (ops.push) and K4 (the
@@ -2348,6 +2545,7 @@ def main(argv) -> int:
     launches["state_push.apply_delta"] = \
         plane_launches["state_push.apply_delta"]
     rows = phase_timing(res, launches, errs)
+    rows += phase_timing_fanout(fanout_launches, ssm_fanout_launches, errs)
     rows += phase_timing_state_push(launches, errs)
     phase_warm_serve(res)
     close_graphs(res)

@@ -131,6 +131,12 @@ class ProtoFaaslet:
         return len(self.arena) + len(self.user_state)
 
 
+def _close(entry: Any) -> None:
+    close = getattr(entry, "close", None)
+    if close is not None:
+        close()
+
+
 class ExecutableCache:
     """Compiled-executable snapshots keyed by (fn, arch, shape, mesh) fingerprint."""
 
@@ -159,6 +165,26 @@ class ExecutableCache:
     def contains(self, key: Tuple) -> bool:
         with self._lock:
             return key in self._cache
+
+    def get(self, key: Tuple) -> Any:
+        """The entry under ``key``, or None (no hit or miss counted)."""
+        with self._lock:
+            return self._cache.get(key)
+
+    def evict(self, key: Tuple) -> None:
+        """Drop the entry under ``key`` (a container's cold start) and
+        close it if it holds device memory (``close``): compiled forwards
+        free it once their last call in flight returns."""
+        with self._lock:
+            entry = self._cache.pop(key, None)
+        _close(entry)
+
+    def clear(self) -> None:
+        """Drop and close every entry (the runtime's shutdown)."""
+        with self._lock:
+            entries, self._cache = list(self._cache.values()), {}
+        for entry in entries:
+            _close(entry)
 
     def stats(self) -> dict:
         with self._lock:

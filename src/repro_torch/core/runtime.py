@@ -1503,4 +1503,5 @@ class FaasmRuntime:
         for h in self.hosts.values():
             if h.alive:
                 h.drain()
+        self.exec_cache.clear()          # free compiled forwards' memory
         self.global_tier.close()         # stop the broadcast pump threads

@@ -131,6 +131,12 @@ class LaunchLog:
         for (counter, key), n in self._n.items():
             counter._add(key, n)
 
+    def merge(self, other: "LaunchLog") -> None:
+        """Add ``other``'s tally to this log's (no counter moves).  A log
+        shared by threads is merged into under the caller's lock."""
+        for k, n in other._n.items():
+            self._n[k] = self._n.get(k, 0) + n
+
     def count(self, counter: LaunchCounter) -> int:
         """The launches of ``counter``'s kernel in the log, all keys."""
         return sum(n for (c, _), n in self._n.items() if c is counter)

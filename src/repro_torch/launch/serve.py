@@ -10,8 +10,10 @@ completion latch) and reports p50/p99 latency and batch throughput; with
 
 On the card the serving loop replays CUDA graphs of its prefill and decode
 step, captured once (``launch/step_graphs.py``), as the reference calls
-its jitted steps; the fan-out's forward still runs op by op, since each
-call binds fresh parameters.
+its jitted steps; and each fan-out call replays a captured forward
+(``launch/call_graphs.py``), as the reference's calls run the jitted
+forward it keeps in the runtime's executable cache, after copying its
+parameters from pinned host leaves.
 
 Everything runs on the CUDA card (``--device cuda``, the default) and raises
 when there is none; the CPU runs only when asked for (``--device cpu``).
@@ -19,14 +21,15 @@ when there is none; the CPU runs only when asked for (``--device cpu``).
 from __future__ import annotations
 
 import argparse
-from typing import Dict, List, Optional
+from typing import Dict, Iterator, List, Mapping, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.kernels.common import resolve_device
-from repro_torch.launch.step_graphs import ServeGraphs, eager_generate, sync
+from repro_torch.launch.call_graphs import CallGraphs, flat_layout, flat_views
+from repro_torch.launch.step_graphs import ServeGraphs, eager_generate
 from repro_torch.models import ExecConfig, build_model
 from repro_torch.models.weights import numpy_to_torch, params_class
 from repro_torch.overload import DEADLINE_RC, SHED_RC
@@ -35,10 +38,69 @@ from repro_torch.telemetry import metrics as tmetrics
 from repro_torch.telemetry import spans as tspans
 
 
-def host_leaves(params: torch.nn.Module) -> Dict[str, torch.Tensor]:
-    """The parameters as picklable host leaves (CPU tensors, by name): what
-    travels in the Proto-Faaslet snapshot."""
-    return {n: p.detach().cpu() for n, p in params.named_parameters()}
+def pinned_empty(numel: int, dtype: torch.dtype) -> torch.Tensor:
+    """An uninitialised flat buffer in page-locked host memory (raises
+    without a card)."""
+    return torch.empty(numel, dtype=dtype, pin_memory=True)
+
+
+class HostLeaves(Mapping):
+    """The parameters' host leaves (CPU tensors) by name: what travels in
+    the Proto-Faaslet snapshot.  The leaves are packed into one flat buffer
+    per dtype (``call_graphs.flat_layout``; each leaf a view), so that a
+    call on the card copies them with one transfer per dtype.
+
+    With ``pin`` (a runtime on the card) the flat buffers are page-locked,
+    so that the copy runs at the host link's rate with no staging copy;
+    and since a pickled tensor comes back pageable, unpickling pins again.
+    So the leaves are pinned once per decoded snapshot template
+    (``ProtoFaaslet.user_state_template``), and a container's
+    re-initialisation pays for its own pinning.  Without ``pin`` (the CPU)
+    nothing is pinned."""
+
+    def __init__(self, leaves: Mapping[str, torch.Tensor],
+                 pin: bool = False) -> None:
+        layout, sizes = flat_layout((n, t.dtype, t.shape)
+                                    for n, t in leaves.items())
+        self._set(layout, {dtype: self._buffer(n, dtype, pin)
+                           for dtype, n in sizes.items()}, pin)
+        for name, t in leaves.items():
+            self._leaves[name].copy_(t)
+
+    @staticmethod
+    def _buffer(numel: int, dtype: torch.dtype, pin: bool) -> torch.Tensor:
+        if pin:
+            return pinned_empty(numel, dtype)
+        return torch.empty(numel, dtype=dtype)
+
+    def _set(self, layout, flats, pin) -> None:
+        self.pin, self.layout, self.flats = bool(pin), layout, flats
+        self._leaves = flat_views(layout, flats)
+
+    def __getitem__(self, name: str) -> torch.Tensor:
+        return self._leaves[name]
+
+    def __iter__(self) -> Iterator[str]:
+        return iter(self._leaves)
+
+    def __len__(self) -> int:
+        return len(self._leaves)
+
+    def __getstate__(self) -> dict:
+        return {"pin": self.pin, "layout": self.layout, "flats": self.flats}
+
+    def __setstate__(self, state: dict) -> None:
+        flats = state["flats"]
+        if state["pin"]:             # a pickled tensor comes back pageable
+            flats = {dtype: pinned_empty(f.numel(), dtype).copy_(f)
+                     for dtype, f in flats.items()}
+        self._set(state["layout"], flats, state["pin"])
+
+
+def host_leaves(params: torch.nn.Module) -> HostLeaves:
+    """The parameters as picklable host leaves (:class:`HostLeaves`, not
+    pinned), copied from wherever they lie."""
+    return HostLeaves({n: p.detach() for n, p in params.named_parameters()})
 
 
 def bind_params(cfg, leaves, device: torch.device) -> torch.nn.Module:
@@ -61,15 +123,34 @@ def fanout_payloads(vocab_size: int, n_requests: int,
             for _ in range(n_requests)]
 
 
+_CAPTURE_METRIC = ("faasm_serve_call_capture_ms",
+                   "warm-up and capture of a slot's forward")
+
+
 def make_infer_function(model, leaves, prompt_len: int = 16,
                         cache_key=("serve", "fwd"), state_wire: str = None,
                         device="cuda"):
     """Build the FAASM ``infer`` FunctionDef for a single-shot forward pass.
 
-    The forward callable, warmed once on ``device``, lands in the runtime's
-    ExecutableCache under ``cache_key``; the (picklable) host ``leaves``
-    travel in the Proto-Faaslet snapshot, and each call binds them to the
-    device afresh (its time lands in ``faasm_serve_param_h2d_ms``).
+    The compiled forward lands in the runtime's ExecutableCache under
+    ``cache_key``, built once and warmed at ``(1, prompt_len)`` as the
+    reference's jitted forward is; the picklable host ``leaves`` travel in
+    the Proto-Faaslet snapshot (:class:`HostLeaves`, which the init pins
+    on the card), and each call copies them to the device afresh, as the
+    reference's ``jnp.asarray`` of each leaf does.
+
+    On the card (``device`` cuda) the cache entry is a
+    :class:`~repro_torch.launch.call_graphs.CallGraphs` with one slot per
+    executor of the runtime: a call copies its leaves into a slot's static
+    buffers and replays that slot's captured forward; a failed capture or
+    replay fails the call, and nothing runs the forward eagerly on the
+    card.  On the CPU the entry is the eager forward over parameters bound
+    by :func:`bind_params`.  Per call, ``faasm_serve_param_h2d_ms`` times
+    the parameter copy and ``faasm_serve_call_forward_ms`` the forward and
+    argmax (CUDA events on the slot's stream on the card; the host clock on
+    the CPU), ``faasm_serve_call_capture_ms`` each warm-up and capture of
+    a slot's forward (the build's included) and, with ``state_wire``,
+    ``faasm_serve_call_stats_ms`` the serve/stats pull, add and push.
 
     With ``state_wire`` set, each request additionally accumulates the
     predicted token into the shared ``serve/stats`` histogram and pushes the
@@ -80,46 +161,72 @@ def make_infer_function(model, leaves, prompt_len: int = 16,
     from repro_torch.core import FunctionDef
 
     device = torch.device(device)
+    graphed = device.type == "cuda"
 
     @torch.no_grad()
     def fwd(p, tokens):
         return model.logits(p, tokens)
 
-    def _build_fwd():
-        p = bind_params(model.cfg, leaves, device)
-        fwd(p, torch.zeros((1, prompt_len), dtype=torch.int32, device=device))
-        sync(device)
-        return fwd
+    def _observe(metrics, name: str, help_: str, ms: float) -> None:
+        metrics.histogram(name, help_).observe(ms)
+
+    def _build(rt, call_leaves):
+        warm = np.zeros((1, prompt_len), np.int32)
+        if not graphed:
+            fwd(bind_params(model.cfg, call_leaves, device),
+                torch.from_numpy(warm))
+            return fwd
+        # a slot for each executor thread of the runtime, all hosts
+        graphs = CallGraphs(model, sum(h.capacity
+                                       for h in rt.hosts.values()), device)
+        r = graphs(call_leaves, warm)          # captures slot 0, replays
+        _observe(rt.metrics, *_CAPTURE_METRIC, r.capture_ms)
+        return graphs
 
     def init(api):
-        api.runtime.exec_cache.get_or_build(cache_key, _build_fwd)
-        return {"params": leaves}
+        pinned = HostLeaves(leaves, pin=graphed)
+        api.runtime.exec_cache.get_or_build(
+            cache_key, lambda: _build(api.runtime, pinned))
+        return {"params": pinned}
 
     def infer(api):
         t_call = tclock.now()
-        state = api.host.user_state(api.faaslet)
-        fwd_, _, _ = api.runtime.exec_cache.get_or_build(cache_key, _build_fwd)
-        t0 = tclock.now()
-        p = bind_params(model.cfg, state["params"], device)
-        sync(device)
-        api.runtime.metrics.histogram(
-            "faasm_serve_param_h2d_ms",
-            "per-call parameter copy to the device").observe(
-                (tclock.now() - t0) * 1e3)
-        tokens = torch.from_numpy(np.frombuffer(
-            api.read_call_input(), np.int32).reshape(1, -1).copy())
-        logits = fwd_(p, tokens.to(device))
-        tok = int(torch.argmax(logits[0, -1]))
+        rt = api.runtime
+        call_leaves = api.host.user_state(api.faaslet)["params"]
+        fwd_, _, _ = rt.exec_cache.get_or_build(
+            cache_key, lambda: _build(rt, call_leaves))
+        tokens = np.frombuffer(api.read_call_input(),
+                               np.int32).reshape(1, -1)
+        if graphed:
+            r = fwd_(call_leaves, tokens)
+            tok, h2d_ms, fwd_ms = r.token, r.h2d_ms, r.forward_ms
+            if r.capture_ms:
+                _observe(rt.metrics, *_CAPTURE_METRIC, r.capture_ms)
+        else:
+            t0 = tclock.now()
+            p = bind_params(model.cfg, call_leaves, device)
+            t1 = tclock.now()
+            tok = int(torch.argmax(fwd_(p, torch.from_numpy(tokens.copy()))
+                                   [0, -1]))
+            h2d_ms, fwd_ms = (t1 - t0) * 1e3, (tclock.now() - t1) * 1e3
+        _observe(rt.metrics, "faasm_serve_param_h2d_ms",
+                 "per-call parameter copy to the device", h2d_ms)
+        _observe(rt.metrics, "faasm_serve_call_forward_ms",
+                 "per-call forward and argmax", fwd_ms)
         if state_wire is not None:
             from repro_torch.state.ddo import VectorAsync
+            t0 = tclock.now()
             stats = VectorAsync(api, "serve/stats")
             stats.pull(track_delta=True)
             stats.add([tok], 1.0)
             stats.push_delta(wire=state_wire)
+            _observe(rt.metrics, "faasm_serve_call_stats_ms",
+                     "per-call serve/stats pull, add and push",
+                     (tclock.now() - t0) * 1e3)
         api.write_call_output(np.int32(tok).tobytes())
-        api.runtime.metrics.histogram(
-            "faasm_serve_infer_ms", "infer call body, queueing excluded"
-        ).observe((tclock.now() - t_call) * 1e3)
+        _observe(rt.metrics, "faasm_serve_infer_ms",
+                 "infer call body, queueing excluded",
+                 (tclock.now() - t_call) * 1e3)
         return 0
 
     return FunctionDef("infer", infer, init_fn=init)
@@ -197,9 +304,18 @@ def run_faasm_fanout(model, params, vocab_size: int, n_requests: int,
 
     Beside the reference's keys the dict holds ``tokens`` (each request's
     token, ``None`` where not served), ``warm_tokens`` (the warm-up wave's),
-    ``param_h2d_ms`` and ``infer_ms`` (mean per-call parameter copy and
-    call body, queueing excluded) and, with ``state_wire``, ``stats``: the
-    global ``serve/stats`` value at the end."""
+    ``param_h2d_ms``, ``forward_ms`` and ``infer_ms`` (the wave's mean
+    per-call parameter copy, forward and call body, queueing excluded;
+    with ``state_wire`` also ``stats_ms``, its serve/stats push),
+    ``param_bytes`` (what each call copies), ``capture_ms`` and
+    ``captures`` (every warm-up and capture of the run: the build's, the
+    warm-up wave's and the wave's) and, on the card, what the
+    :class:`~repro_torch.launch.call_graphs.CallGraphs` counted: ``slots``,
+    ``replays`` (every call's, the build's included) and
+    ``warmup_launches`` (the warm-ups' launches, a ``LaunchLog``, read
+    apart from the replays'); with ``state_wire``, ``stats``:
+    the global ``serve/stats`` value at the end.  The graphs are freed when
+    the runtime shuts down."""
     from repro_torch import overload as oload
     from repro_torch.core import FaasmRuntime
     from repro_torch.state.ddo import VectorAsync
@@ -217,8 +333,8 @@ def run_faasm_fanout(model, params, vocab_size: int, n_requests: int,
         if state_wire is not None:
             VectorAsync.create(rt.global_tier, "serve/stats",
                                np.zeros(vocab_size, np.float32))
-        rt.upload(make_infer_function(model, host_leaves(params),
-                                      prompt_len=prompt_len,
+        leaves = host_leaves(params)
+        rt.upload(make_infer_function(model, leaves, prompt_len=prompt_len,
                                       state_wire=state_wire,
                                       device=rt.device))
         payloads = fanout_payloads(vocab_size, n_requests, prompt_len)
@@ -227,8 +343,12 @@ def run_faasm_fanout(model, params, vocab_size: int, n_requests: int,
         rt.wait_all(warm, timeout=300)
         rt.global_tier.reset_metrics()
         h2d = rt.metrics.histogram("faasm_serve_param_h2d_ms")
+        fwd = rt.metrics.histogram("faasm_serve_call_forward_ms")
         body = rt.metrics.histogram("faasm_serve_infer_ms")
-        h2d0, body0 = (h2d.count, h2d.sum), body.sum
+        capture = rt.metrics.histogram("faasm_serve_call_capture_ms")
+        push = rt.metrics.histogram("faasm_serve_call_stats_ms")
+        h2d0, fwd0, body0, push0 = ((h2d.count, h2d.sum), fwd.sum, body.sum,
+                                    push.sum)
         t0 = tclock.now()
         wave = submit_degradable(rt, "infer", payloads,
                                  min_alive_hosts=min_alive_hosts,
@@ -263,9 +383,18 @@ def run_faasm_fanout(model, params, vocab_size: int, n_requests: int,
                           for c, r in zip(wave["call_ids"], wave["codes"])],
                "warm_tokens": [_token(rt, c) for c in warm],
                "param_h2d_ms": (h2d.sum - h2d0[1]) / n_calls,
-               "infer_ms": (body.sum - body0) / n_calls}
+               "forward_ms": (fwd.sum - fwd0) / n_calls,
+               "infer_ms": (body.sum - body0) / n_calls,
+               "param_bytes": sum(x.numel() * x.element_size()
+                                  for x in leaves.values()),
+               "capture_ms": capture.sum, "captures": capture.count}
+        if rt.device.type == "cuda":
+            graphs = rt.exec_cache.get(("serve", "fwd"))
+            out.update(slots=graphs.slots, replays=graphs.replays,
+                       warmup_launches=graphs.warmup_launches)
         if state_wire is not None:
             out["state_wire"] = state_wire
+            out["stats_ms"] = (push.sum - push0) / n_calls
             out["state_push_mb"] = sum(
                 rt.global_tier.bytes_pushed.values()) / 1e6
             out["stats"] = np.frombuffer(
@@ -408,6 +537,10 @@ def main(argv: Optional[List[str]] = None, keep_logits: bool = False) -> dict:
         print(f"faasm fan-out: {r['requests']} reqs in {r['wall_s']:.2f}s "
               f"({r['throughput_rps']:.1f} req/s) "
               f"p50={r['p50_ms']:.1f}ms p99={r['p99_ms']:.1f}ms")
+        print(f"  per call: parameter copy {r['param_h2d_ms']:.2f}ms "
+              f"({r['param_bytes'] / 1e9:.3f} GB), forward "
+              f"{r['forward_ms']:.2f}ms; {r['captures']} captures in "
+              f"{r['capture_ms']:.1f}ms")
         if r.get("degraded"):
             print(f"  DEGRADED: {r['shed']} requests shed (alive hosts "
                   f"below --min-alive-hosts={args.min_alive_hosts})")

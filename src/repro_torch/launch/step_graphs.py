@@ -12,6 +12,7 @@ the CPU runs: it has no graphs.
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import Callable, List, NamedTuple, Optional
 
 import torch
@@ -73,26 +74,56 @@ def eager_generate(model, params, tokens, new_tokens: int,
     return Generation(torch.stack(out, dim=1), kept, (t0, t1, tclock.now()))
 
 
+_CAPTURE_LOCK = threading.Lock()   # one capture at a time in the process
+
+
 class CudaCapture:
     """How :class:`ServeGraphs` records its steps on the card: one capture
     stream and one memory pool, which its graphs share.  (A test hands
-    :class:`ServeGraphs` a stand-in with the same two methods.)"""
+    :class:`ServeGraphs` a stand-in with the same two methods.)
 
-    def __init__(self, device: torch.device) -> None:
-        self.stream = torch.cuda.Stream(device)
+    Captures take turns, one at a time in the process, as PyTorch's graph
+    API expects; replays and other work need no turn.  A capture does not
+    first sync the device and empty the allocator's cache as
+    ``torch.cuda.graph`` does, which would wait for and disturb the other
+    threads.  With ``thread_local`` (each executor slot of
+    :class:`~repro_torch.launch.call_graphs.CallGraphs` owns one) it runs
+    in CUDA's thread-local capture mode, so that the other threads of the
+    process go on launching, allocating and syncing while it runs; else in
+    the global mode, which fails it if any thread does something unsafe.
+    ``stream``, when given, is the capture stream (else a new one from
+    PyTorch's pool)."""
+
+    def __init__(self, device: torch.device, thread_local: bool = False,
+                 stream: Optional[torch.cuda.Stream] = None) -> None:
+        self.stream = torch.cuda.Stream(device) if stream is None else stream
         self.pool = torch.cuda.graph_pool_handle()
+        self.mode = "thread_local" if thread_local else "global"
 
-    def on_stream(self):
+    def on_stream(self, after_current: bool = True):
         """A context that queues work on the capture stream, after what the
-        current stream has queued (the warm-up)."""
-        self.stream.wait_stream(torch.cuda.current_stream(self.stream.device))
+        current stream has queued (the warm-up) unless ``after_current`` is
+        False."""
+        if after_current:
+            self.stream.wait_stream(
+                torch.cuda.current_stream(self.stream.device))
         return torch.cuda.stream(self.stream)
 
     def capture(self, body: Callable[[], None]) -> torch.cuda.CUDAGraph:
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
-            body()
+        with _CAPTURE_LOCK, torch.cuda.stream(self.stream):
+            graph.capture_begin(pool=self.pool, capture_error_mode=self.mode)
+            try:
+                body()
+            finally:
+                graph.capture_end()
         return graph
+
+    def stamp(self) -> torch.cuda.Event:
+        """A timing event recorded on the capture stream now."""
+        event = torch.cuda.Event(enable_timing=True)
+        event.record(self.stream)
+        return event
 
 
 class _Step(NamedTuple):

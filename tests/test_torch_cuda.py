@@ -874,3 +874,197 @@ def test_capture_with_no_warm_up_on_its_stream_raises_k6s_error(
                                            "the capture stream"):
         step_graphs.ServeGraphs(model, params, 2, GRAPH_PROMPT,
                                 GRAPH_PROMPT + 6, card, capture=capture)
+
+
+# -- the fan-out's compiled forward (launch/call_graphs.py) -------------------
+
+CALL_ARCHS = ["qwen1.5-0.5b", "mamba2-130m"]
+
+
+def _call_served(card, arch):
+    """A smoke model on the card, its pinned host leaves, and prompts."""
+    from repro_torch.launch import serve
+    cfg = smoke_config(arch)
+    model = build_model(cfg, ExecConfig())
+    params = model.init(torch.Generator(device=card).manual_seed(0), card)
+    leaves = serve.HostLeaves(serve.host_leaves(params), pin=True)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, (1, 16)).astype(np.int32)
+               for _ in range(32)]
+    return model, leaves, prompts
+
+
+def _eager_call(model, leaves, prompt, card):
+    from repro_torch.launch import serve
+    with torch.no_grad():
+        p = serve.bind_params(model.cfg, leaves, torch.device(card))
+        logits = model.logits(p, torch.from_numpy(prompt).to(card))[0, -1]
+        return int(torch.argmax(logits)), logits
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", CALL_ARCHS)
+def test_graphed_call_equals_the_eager_call_bitwise(card, arch):
+    """A replay of the captured forward gives the eager call's token and
+    last-position logits bitwise on the same leaves, at a second length
+    too; the kernels count one warm-up per capture and one forward per
+    replay."""
+    from repro_torch.launch.call_graphs import CallGraphs
+    model, leaves, prompts = _call_served(card, arch)
+    counters = _kernel_counters()
+    graphs = CallGraphs(model, 2, card)
+    for prompt in prompts[:4] + [prompts[4][:, :9]]:
+        want_tok, want = _eager_call(model, leaves, prompt, card)
+        for c in counters.values():
+            c.reset()
+        got = graphs(leaves, prompt, keep_logits=True)
+        assert got.token == want_tok
+        assert torch.equal(got.logits, want)
+        assert got.h2d_ms > 0 and got.forward_ms > 0
+    for c in counters.values():
+        c.reset()
+    graphs(leaves, prompts[0])                # a replay alone
+    assert graphs.captures == 2 and graphs.replays == 6
+    per_forward = {k: c.value for k, c in counters.items()}
+    warm = {k: graphs.warmup_launches.count(c) for k, c in counters.items()}
+    assert warm == {k: 2 * n for k, n in per_forward.items()}
+    assert per_forward["flash_attention" if arch == CALL_ARCHS[0]
+                       else "ssd_scan"] == model.cfg.n_layers
+    graphs.close()
+
+
+@pytest.mark.cuda
+def test_eight_threads_get_every_prompts_eager_token(card):
+    import threading
+    from repro_torch.launch.call_graphs import CallGraphs
+    model, leaves, prompts = _call_served(card, "qwen1.5-0.5b")
+    want = [_eager_call(model, leaves, p, card)[0] for p in prompts]
+    graphs = CallGraphs(model, 8, card)
+    got, errors = [None] * len(prompts), []
+
+    def worker(k):
+        try:
+            for i in range(k, len(prompts), 8):
+                got[i] = graphs(leaves, prompts[i]).token
+        except Exception as e:              # reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=worker, args=(k,)) for k in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(120)
+    assert not any(t.is_alive() for t in threads) and not errors, errors
+    assert got == want
+    assert graphs.replays == 32 and graphs.captures == graphs.slots <= 8
+    graphs.close()
+
+
+@pytest.mark.cuda
+def test_a_capture_runs_while_other_threads_push_through_k1(card):
+    """One thread captures a new slot's forward in thread-local mode while
+    four others run eager K1 quantisations and sync their streams: the
+    capture succeeds and every push agrees with the host codec."""
+    import threading
+    import time
+    from repro_torch.launch.call_graphs import CallGraphs
+    model, leaves, prompts = _call_served(card, "qwen1.5-0.5b")
+    want = _eager_call(model, leaves, prompts[0], card)[0]
+    graphs = CallGraphs(model, 2, card)
+    stop, errors, pushes = threading.Event(), [], []
+    rng = np.random.default_rng(1)
+    eff, base = (rng.normal(size=151_936).astype(np.float32)
+                 for _ in range(2))
+    q_ref, s_ref = hostcodec.encode_quant(eff, base)[:2]
+
+    def pusher():
+        try:
+            while not stop.is_set():
+                q, s = sp_ops.encode_quant(eff, base, device=card)[:2]
+                torch.cuda.current_stream().synchronize()
+                assert np.array_equal(q, q_ref) and np.array_equal(s, s_ref)
+                pushes.append(1)
+        except Exception as e:              # reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=pusher) for _ in range(4)]
+    for t in threads:
+        t.start()
+    try:
+        deadline = time.monotonic() + 60
+        while len(pushes) < 8 and not errors:
+            assert time.monotonic() < deadline
+            time.sleep(0.001)
+        n0 = len(pushes)
+        got = graphs(leaves, prompts[0])
+        assert len(pushes) > n0             # pushes ran during the capture
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(60)
+    assert not errors, errors
+    assert got.capture_ms > 0 and got.token == want
+    graphs.close()
+
+
+@pytest.mark.cuda
+def test_container_rebuilds_free_their_graphs(card):
+    """Five container cold starts, each evicting the cached forward: the
+    card's allocated bytes after each rebuild stay within one slot's
+    parameters of the first (the evicted graphs, buffers and pool are
+    freed, and the rebuilt slot captures on its predecessor's stream, so
+    cuBLAS keeps no new workspace)."""
+    import gc
+    from repro_torch.core import FaasmRuntime
+    from repro_torch.launch import serve
+    from repro_torch.launch.call_graphs import param_bytes
+    model, _, prompts = _call_served(card, "qwen1.5-0.5b")
+    params = model.init(torch.Generator(device=card).manual_seed(0), card)
+    leaves = serve.host_leaves(params)
+    del params
+    rt = FaasmRuntime(n_hosts=1, capacity=1, isolation="container",
+                      device=card)
+    try:
+        rt.upload(serve.make_infer_function(model, leaves, device=card))
+        host = next(iter(rt.hosts.values()))
+        allocated = []
+        for i in range(6):
+            if i:
+                host._warm.clear()
+                host._container_tiers.clear()
+                rt.exec_cache.evict(("serve", "fwd"))
+            cid = rt.invoke("infer", prompts[i].tobytes())
+            assert rt.wait(cid, timeout=120) == 0, rt.call(cid).error
+            gc.collect()
+            torch.cuda.synchronize()
+            allocated.append(torch.cuda.memory_allocated(card))
+        assert rt.exec_cache.stats()["misses"] == 6
+        slot = param_bytes(model.cfg)
+        assert max(allocated) - allocated[0] < slot, allocated
+    finally:
+        rt.shutdown()
+
+
+@pytest.mark.cuda
+def test_a_restored_faaslet_copies_from_pinned_leaves(card):
+    from repro_torch.core import FaasmRuntime
+    from repro_torch.launch import serve
+    model, _, prompts = _call_served(card, "mamba2-130m")
+    params = model.init(torch.Generator(device=card).manual_seed(0), card)
+    leaves = serve.host_leaves(params)
+    assert not any(x.is_pinned() for x in leaves.values())
+    rt = FaasmRuntime(n_hosts=1, capacity=2, device=card)
+    try:
+        rt.upload(serve.make_infer_function(model, leaves, device=card))
+        cids = rt.invoke_many("infer", [p.tobytes() for p in prompts[:4]])
+        assert rt.wait_all(cids, timeout=120) == [0] * 4
+        host = next(iter(rt.hosts.values()))
+        states = [s for s in host._user_state.values() if s is not None]
+        assert states
+        for state in states:
+            assert state["params"].pin
+            assert all(x.is_pinned() for x in state["params"].values())
+        template = rt.proto_for("infer", host=host.id).user_state_template()
+        assert all(state["params"] is template["params"] for state in states)
+    finally:
+        rt.shutdown()

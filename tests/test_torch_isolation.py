@@ -16,7 +16,8 @@ from repro_torch.state.kv import GlobalTier
 
 REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + \
-    [REPO / "chip_smoke.py"]
+    [REPO / "chip_smoke.py", REPO / "examples" / "inference_serving_torch.py",
+     REPO / "benchmarks" / "bench_inference_torch.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 

@@ -16,6 +16,8 @@ its window-miss refresh full-pulls over HOGWILD adds not yet pushed (ROADMAP
 "Faults found in the port": the lost update on a window-miss refresh).
 """
 import re
+import sys
+from pathlib import Path
 
 import jax
 import numpy as np
@@ -140,3 +142,94 @@ def test_serve_main_fans_out_on_the_cpu(capsys, arch, requests):
                        minlength=res["cfg"].vocab_size)
     # 257 floats are below the int8 floor: the stats ride the exact wire
     np.testing.assert_array_equal(r["stats"], hist.astype(np.float32))
+
+
+# -- the Fig. 7 experiment: examples/inference_serving.py and its twin -------
+
+FIG7_REQUESTS = 12
+FIG7_RUNS = [(m, r) for m in ("faaslet", "container") for r in (0.0, 0.2)]
+
+
+@pytest.fixture(scope="module", params=["bfloat16", "float32"])
+def fig7(request):
+    """Both examples' ``serve`` at the smoke config with the JAX tree's
+    weights, every (mode, cold ratio): the reference's runtime recorded
+    (its executable cache and call ids), the twin's dict.  In bf16, as the
+    examples run it, and widened to f32, where no near-tie flips an
+    argmax between the two frameworks."""
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "examples"))
+    import inference_serving as ref
+    import inference_serving_torch as twin
+
+    class Recording(JaxRuntime):
+        made = []
+
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.cids, self.batch = [], []
+            Recording.made.append(self)
+
+        def invoke(self, *a, **kw):
+            cid = super().invoke(*a, **kw)
+            self.cids.append(cid)
+            return cid
+
+        def invoke_many(self, *a, **kw):
+            self.batch = super().invoke_many(*a, **kw)
+            return self.batch
+
+    dtype = dict(dtype=request.param, param_dtype=request.param)
+    jcfg = jax_smoke_config("qwen1.5-0.5b").with_overrides(**dtype)
+    jmodel = jax_build_model(jcfg, JaxExecConfig(backend="xla",
+                                                 loss_chunk=0))
+    jparams = jmodel.init(jax.random.PRNGKey(0))
+    flat, treedef = jax.tree_util.tree_flatten(jparams)
+    tcfg = smoke_config("qwen1.5-0.5b").with_overrides(**dtype)
+    params = from_jax_params(jax.tree.map(np.asarray, jparams), tcfg, "cpu")
+    leaves = serve.host_leaves(params)
+    out = {}
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(ref, "FaasmRuntime", Recording)
+        for mode, ratio in FIG7_RUNS:
+            ref.serve(mode, FIG7_REQUESTS, ratio, jmodel, treedef,
+                      [np.asarray(x) for x in flat])
+            rt = Recording.made[-1]
+            tok = lambda c: _token_of(rt.output(c))
+            want = {"misses": rt.exec_cache.stats()["misses"],
+                    "tokens": [tok(c) for c in rt.cids],
+                    "batch_tokens": [tok(c) for c in rt.batch]}
+            got = twin.serve(mode, FIG7_REQUESTS, ratio, build_model(tcfg),
+                             leaves, "cpu")
+            out[mode, ratio] = want, got
+    return request.param, out
+
+
+def _token_of(output: bytes) -> int:
+    return int(np.frombuffer(output, np.int32)[0])
+
+
+@pytest.mark.parametrize("mode,ratio", FIG7_RUNS)
+def test_fig7_twin_takes_the_references_cold_starts(fig7, mode, ratio):
+    """The same draws force the same cold starts: the executable cache is
+    built as often in both (once in Faaslet mode, whose cold starts
+    restore the Proto-Faaslet; once more per forced cold start in
+    container mode, which evicts it)."""
+    want, got = fig7[1][mode, ratio]
+    assert got["misses"] == want["misses"]
+    forced = len(got["cold_captures"])
+    assert want["misses"] == (1 + forced if mode == "container" else 1)
+    assert forced == (0 if ratio == 0.0 else 2)
+
+
+@pytest.mark.parametrize("mode,ratio", FIG7_RUNS)
+def test_fig7_twin_serves_the_references_tokens(fig7, mode, ratio):
+    """Equal tokens in f32; in bf16 on MIN_AGREEMENT of the requests, as
+    the fan-out's tokens (bf16 near-ties may flip)."""
+    dtype, runs = fig7
+    want, got = runs[mode, ratio]
+    w = np.asarray(want["tokens"] + want["batch_tokens"])
+    g = np.asarray(got["tokens"] + got["batch_tokens"])
+    if dtype == "float32":
+        np.testing.assert_array_equal(g, w)
+    else:
+        assert np.mean(g == w) >= MIN_AGREEMENT, (g, w)
