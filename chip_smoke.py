@@ -124,7 +124,25 @@ Phases, each fatal on failure:
 13. ssm timing: K8 at both models' prefill shapes, with decays and step
    sizes as the models draw them, as in phase 7, and K5 and K6 at
    zamba2-1.2b's shared-block shapes (H 32); then each model's warm
-   prefill and decode, and one profiled decode loop.
+   prefill and decode, and one profiled decode loop;
+14. training, qwen1.5-0.5b at full width at train_4k's sequence (4,096)
+   and batch 4: K5's softmax statistics (each row's log-sum-exp) and
+   ``FlashAttentionFn``'s gradients (K5 forward, the plain flash
+   backward) against ``attention_ref`` and autograd through it at one
+   layer's shape; one step on the kernel path against the plain path on
+   the same weights and batch (widened to f32: losses within 1e-4, every
+   gradient leaf within 1e-3 relative L2; bf16: losses within 3e-2, the
+   leaves' relative L2 printed); then the main path,
+   ``examples/train_lm_torch.py`` for 8 steps with every counter zeroed
+   just before: K5 exactly twice per layer and step (the forward and the
+   remat recompute), no other kernel, the loss finite at every step,
+   every weight matrix moved, one more step's update bitwise equal to
+   cast(p32 - lr g32) leaf by leaf; the step time (host clock ending in
+   a sync), tokens/s, ``train_mfu`` (6 N T plus causal attention over
+   the step time at 989 TFLOP/s), peak memory, the forward, backward
+   and update by CUDA events, the profiled busy share; K5 timed at the
+   training forward beside SDPA's forward, and the plain flash backward
+   beside SDPA's backward.
 
 Phase 2 also holds K8 against its plain version (and the sequential
 oracle) at both models' prefill shapes, in f32 at the reference's 1e-4
@@ -159,7 +177,8 @@ K6 at the three served decode shapes beside SDPA (on one cache, and over
 8 caches taken in turn so that each call reads HBM), lists the kernels one
 call launches, and stops; ``python3 chip_smoke.py ssd`` holds K8 at every
 phase-2 case, times it at both SSM prefill shapes with the time of each of
-its kernels, and stops.  ``python3 chip_smoke.py profile`` serves each of
+its kernels, and stops.  ``python3 chip_smoke.py train`` builds, holds the attention kernels,
+runs phase 14 and stops.  ``python3 chip_smoke.py profile`` serves each of
 the four models and prints the device time of one prefill and of one
 decode step (profiler, two runs each) and the wall of each, of the eager
 loop and, where the launcher has step graphs, of their replays, and
@@ -176,6 +195,7 @@ from __future__ import annotations
 import contextlib
 import gc
 import json
+import math
 import re
 import subprocess
 import sys
@@ -1013,20 +1033,26 @@ def phase_timing_fanout(qwen_launches, ssm_launches, errs) -> list:
     """K5 and K8 at the fan-out's (1, 16) forward (qwen1.5-0.5b's and
     mamba2-130m's), with each fan-out's launches (its warm-ups and
     replays)."""
+    from repro_torch.configs import get_config
+    return phase_timing_fanout_flash(qwen_launches["flash_attention"],
+                                     errs) + phase_timing_ssd(
+        {"cfg": get_config(SSM_ARCHS[0])}, ssm_launches["ssd_scan"], errs,
+        Bt=1, S=16, name="ssd_scan[fan-out]")
+
+
+def phase_timing_fanout_flash(launches: int, errs) -> list:
+    """K5 at the qwen fan-out's (1, 16) forward."""
     import torch
     from repro_torch.configs import get_config
     cfg = get_config(ARCH)
     H, K, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     name = "flash_attention[fan-out]"
     g = torch.Generator(device="cuda").manual_seed(SEED + 10)
-    row, back_to_back, how = _flash_row(
-        name, 1, 16, H, K, D, {name: qwen_launches["flash_attention"]},
-        errs, g)
+    row, back_to_back, how = _flash_row(name, 1, 16, H, K, D,
+                                        {name: launches}, errs, g)
     _log_flash_row(row, back_to_back, how, f"the fan-out's forward (B 1 "
                    f"S 16 H {H} K {K} D {D})")
-    return [row] + phase_timing_ssd(
-        {"cfg": get_config(SSM_ARCHS[0])}, ssm_launches["ssd_scan"], errs,
-        Bt=1, S=16, name="ssd_scan[fan-out]")
+    return [row]
 
 
 def phase_timing(res, launches, errs) -> list:
@@ -2429,24 +2455,26 @@ def phase_decode_ab() -> None:
 
 
 def phase_ssd_ab() -> None:
-    """K8 alone at both SSM prefill shapes (bf16, the models' decays, zero
-    initial state, as phase 13 times it), held against its plain version
-    and timed twice, with the time of each kernel of a call.  It calls only
-    the public wrapper, so that a copy of this script in an earlier
-    checkout times that checkout's K8."""
+    """K8 alone at both SSM prefill shapes and at the mamba2 fan-out's (1,
+    16) forward (bf16, the models' decays, zero initial state, as phases
+    13 and 7 time it), held against its plain version and timed twice,
+    with the time of each kernel of a call.  It calls only the public
+    wrapper, so that a copy of this script in an earlier checkout times
+    that checkout's K8."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels.ssd_scan import ssd, ssd_chunked
     g = torch.Generator(device="cuda").manual_seed(SEED + 7)
     log("timing, K8 alone (device time per call, twice):")
-    for arch in SSM_ARCHS:
+    for arch, Bt, S in [(a, BATCH, PROMPT) for a in SSM_ARCHS] + \
+            [(SSM_ARCHS[0], 1, 16)]:
         cfg = get_config(arch)
         H, P, G, N = (cfg.ssm_nheads, cfg.ssm_headdim, cfg.ssm_ngroups,
                       cfg.ssm_state)
-        Q = min(cfg.ssm_chunk, _ssd_chunk(PROMPT))
-        x, dt, A, B, C, D, _ = _ssd_inputs(g, BATCH, PROMPT, H, P, G, N,
+        Q = min(cfg.ssm_chunk, _ssd_chunk(S))
+        x, dt, A, B, C, D, _ = _ssd_inputs(g, Bt, S, H, P, G, N,
                                            torch.bfloat16, "model", False)
-        init = torch.zeros(BATCH, H, P, N, device="cuda")
+        init = torch.zeros(Bt, H, P, N, device="cuda")
         want = ssd_chunked(x, dt, A, B, C, D, init, Q)
         got = ssd(x, dt, A, B, C, D, chunk=cfg.ssm_chunk)
         check_close(f"K8 {arch} y", got[0], want[0], SSD_TOL["bfloat16"])
@@ -2454,9 +2482,360 @@ def phase_ssd_ab() -> None:
                     SSD_TOL["bfloat16"])
         kernel = lambda: ssd(x, dt, A, B, C, D, chunk=cfg.ssm_chunk)
         t, how = device_times([kernel, kernel])
-        log(f"  {arch} (Bt {BATCH} S {PROMPT} H {H} P {P} G {G} N {N} Q "
+        log(f"  {arch} (Bt {Bt} S {S} H {H} P {P} G {G} N {N} Q "
             f"{Q}): {t[0] * 1e3:.1f}/{t[1] * 1e3:.1f}us ({how}); kernels "
             f"(per call, us): {kernels_per_call(kernel)}")
+
+
+# ---------------------------------------------------------------------------
+# Training: qwen1.5-0.5b at full width, train_4k's sequence, batch 4
+# ---------------------------------------------------------------------------
+
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS, TRAIN_WARM = 4096, 4, 8, 2
+TRAIN_LOSS_TOL = {"float32": 1e-4, "bfloat16": 3e-2}   # abs + rel
+TRAIN_GRAD_RL2 = 1e-3        # each f32 gradient leaf, relative L2
+
+
+def _train_qkv(g, requires_grad=False):
+    """One qwen1.5-0.5b layer's attention operands at the training shape
+    (bf16), and an upstream gradient."""
+    import torch
+    from repro_torch.configs import get_config
+    cfg = get_config(ARCH)
+    H, K, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    shapes = [(TRAIN_BATCH, TRAIN_SEQ, H, D), (TRAIN_BATCH, TRAIN_SEQ, K, D),
+              (TRAIN_BATCH, TRAIN_SEQ, K, D), (TRAIN_BATCH, TRAIN_SEQ, H, D)]
+    return [torch.randn(s, generator=g, device="cuda").to(torch.bfloat16)
+            for s in shapes]
+
+
+def phase_train_parity() -> dict:
+    """K5's softmax statistics and ``FlashAttentionFn``'s gradients at one
+    layer's training shape (B 4, S 4096, H 16, D 64, bf16, causal) against
+    the plain version's (``attention_ref`` with its statistics, and
+    autograd through it): the output and gradients at the bf16 kernel
+    tolerance, the statistics (f32 sums of f32 products of the same bf16
+    operands) at the f32 one."""
+    import torch
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention)
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    g = torch.Generator(device="cuda").manual_seed(SEED + 20)
+    q, k, v, do = _train_qkv(g)
+    D = q.shape[-1]
+    log(f"train parity: K5 with statistics and FlashAttentionFn at B "
+        f"{TRAIN_BATCH} S {TRAIN_SEQ} H {q.shape[2]} D {D}, bf16, causal")
+    out, lse = flash_ops._flash_cuda(q, k, v, True, D ** -0.5, 0, stats=True)
+    torch.cuda.synchronize()
+    want, want_lse = attention_ref(q, k, v, causal=True, return_stats=True)
+    err = check_close("K5 output (train shape)", out, want, TOL["bfloat16"])
+    check_close("K5 statistics (train shape)", lse, want_lse, TOL["float32"])
+    del want, want_lse
+    xs = [t.clone().requires_grad_() for t in (q, k, v)]
+    n0 = flash_ops.LAUNCHES.value
+    flash_attention(*xs, causal=True).backward(do)
+    torch.cuda.synchronize()
+    if flash_ops.LAUNCHES.value != n0 + 1:
+        raise AssertionError("FlashAttentionFn did not launch K5 once")
+    ys = [t.clone().requires_grad_() for t in (q, k, v)]
+    attention_ref(*ys, causal=True).backward(do)
+    for name, a, b in zip(("dq", "dk", "dv"), xs, ys):
+        check_close(f"FlashAttentionFn {name} (train shape)", a.grad, b.grad,
+                    TOL["bfloat16"])
+    del xs, ys
+    torch.cuda.empty_cache()
+    return {"flash_attention[train]": err}
+
+
+def _train_batch(cfg, step: int) -> dict:
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import PipelineConfig, make_batch
+    from repro_torch.launch.train import to_device
+    shape = ShapeConfig("train_4k_b4", "train", TRAIN_SEQ, TRAIN_BATCH)
+    return to_device(make_batch(cfg, shape, PipelineConfig(seed=SEED), step),
+                     "cuda")
+
+
+def _loss_and_grads(model, params, batch):
+    import torch
+    loss, _ = model.loss(params, batch)
+    grads = torch.autograd.grad(loss, list(params.parameters()))
+    return loss.detach(), grads
+
+
+def phase_train_holds() -> None:
+    """One training step of qwen1.5-0.5b at full width (the example's
+    execution config: remat full, loss chunks of 128) on the kernel path
+    and on the plain path (``backend="torch"``), on the same weights and
+    batch: with the weights widened to f32 the losses within 1e-4 and
+    every gradient leaf within 1e-3 relative L2; in bf16 the losses within
+    3e-2 and each leaf's relative L2 reported."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import ExecConfig, build_model
+    from repro_torch.models.weights import trainable
+    cfg = get_config(ARCH)
+    batch = _train_batch(cfg, 0)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    base = build_model(cfg).init(gen)
+    for dtype in ("float32", "bfloat16"):
+        dcfg = cfg.with_overrides(dtype=dtype, param_dtype=dtype)
+        params = trainable(base.to(getattr(torch, dtype)) if dtype ==
+                           "float32" else base)
+        out = {}
+        for backend in ("auto", "torch"):
+            model = build_model(dcfg, ExecConfig(
+                backend=backend, loss_chunk=min(TRAIN_SEQ, 128)))
+            t0 = time.perf_counter()
+            out[backend] = _loss_and_grads(model, params, batch)
+            torch.cuda.synchronize()
+            log(f"  train step {dtype} {backend}: loss "
+                f"{float(out[backend][0]):.6f} in "
+                f"{time.perf_counter() - t0:.2f}s")
+        (lk, gk), (lp, gp) = out["auto"], out["torch"]
+        tol = TRAIN_LOSS_TOL[dtype]
+        names = [n for n, _ in params.named_parameters()]
+        rl2 = {n: float((a.float() - b.float()).norm() /
+                        b.float().norm().clamp_min(1e-30))
+               for n, a, b in zip(names, gk, gp)}
+        worst = max(rl2, key=rl2.get)
+        finite = all(bool(torch.isfinite(a).all()) for a in gk)
+        log(f"train hold {dtype}: kernel path vs plain path, loss "
+            f"{float(lk):.6f} vs {float(lp):.6f} (|d| "
+            f"{abs(float(lk) - float(lp)):.3e}, tol {tol:g} abs + rel); "
+            f"gradient leaves' relative L2: max {rl2[worst]:.3e} ({worst}), "
+            f"median {sorted(rl2.values())[len(rl2) // 2]:.3e}"
+            + (f" (held to {TRAIN_GRAD_RL2:g})" if dtype == "float32"
+               else " (reported)"))
+        if not finite or abs(float(lk) - float(lp)) > tol + tol * abs(float(lp)):
+            raise AssertionError(f"train step {dtype}: losses {float(lk)} and "
+                                 f"{float(lp)}, or a non-finite gradient")
+        if dtype == "float32" and rl2[worst] > TRAIN_GRAD_RL2:
+            raise AssertionError(f"gradient {worst}: relative L2 "
+                                 f"{rl2[worst]:.3e}")
+        del out, gk, gp
+        if dtype == "float32":
+            del params
+            gc.collect()
+            torch.cuda.empty_cache()
+            base = build_model(cfg).init(
+                torch.Generator(device="cuda").manual_seed(SEED))
+    del base
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _train_flops(cfg, n_params: int) -> float:
+    """Model FLOP of one step: 6 N T for the weights (the tied embedding
+    counted once, as the unembedding), plus causal attention's forward
+    (QK^T and PV over S (S + 1) / 2 pairs) and backward (twice the
+    forward); no remat recompute."""
+    T = TRAIN_BATCH * TRAIN_SEQ
+    attn_fwd = 4 * cfg.head_dim * cfg.n_heads * TRAIN_BATCH * \
+        TRAIN_SEQ * (TRAIN_SEQ + 1) // 2
+    return 6 * n_params * T + 3 * attn_fwd * cfg.n_layers
+
+
+def phase_train(smi: str) -> tuple:
+    """The training main path: ``examples/train_lm_torch.py`` at full width
+    (qwen1.5-0.5b, random weights from the seed, train_4k's sequence of
+    4,096 at batch 4, SGD with warmup_cosine(0.05), remat full), 8 steps,
+    every counter zeroed just before and read just after: K5 launches
+    exactly twice per layer and step (forward and remat recompute), no
+    other kernel launches.  The loss must be finite at every step and
+    every weight matrix (the embedding, attention and MLP leaves) must
+    have moved by the last step.  A leaf whose every element's f32 step
+    stays under half a bf16 ulp keeps its value, as in the reference
+    (the update is cast to bf16 with no f32 master copy): the unit norm
+    scales do at lr 0.05.  So one more step holds the update itself:
+    every leaf bitwise equal to the reference's rule, cast(p32 - lr g32),
+    computed leaf by leaf, and each unmoved leaf's largest step is
+    printed against half an ulp.  Then two steps with CUDA events around
+    the forward, backward and update, and one under the profiler for the
+    device's busy share.  Returns (the config, K5's launches)."""
+    import shutil
+    import tempfile
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import ExecConfig, build_model
+    from repro_torch.optim import SGD, warmup_cosine
+    sys.path.insert(0, str(ROOT / "examples"))
+    import train_lm_torch as twin
+    log(f"train: {ARCH} full width via examples/train_lm_torch.py, bf16, "
+        f"batch {TRAIN_BATCH} x seq {TRAIN_SEQ}, {TRAIN_STEPS} steps")
+    ckpt_dir = tempfile.mkdtemp(prefix="train_lm_torch_")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    reset_launches()
+    try:
+        res = twin.main(["--arch", ARCH, "--seq", str(TRAIN_SEQ), "--batch",
+                         str(TRAIN_BATCH), "--steps", str(TRAIN_STEPS),
+                         "--lr", "0.05", "--ckpt-every", "0", "--ckpt-dir",
+                         ckpt_dir, "--device", "cuda"])
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    launches = read_launches()
+    peak_gb = (torch.cuda.max_memory_allocated() - base_mem) / 1e9
+    cfg, params, state = res["cfg"], res["params"], res["state"]
+    want = {k: 0 for k in launches}
+    want["flash_attention"] = 2 * cfg.n_layers * TRAIN_STEPS
+    log(f"  launches {launches} (expected {want}: K5 forward and remat "
+        f"recompute in each of {cfg.n_layers} layers and {TRAIN_STEPS} "
+        f"steps)")
+    if launches != want:
+        raise AssertionError(f"train launches {launches}, expected {want}")
+    losses = [float(x) for x in res["losses"]]
+    log(f"  loss by step: {[round(x, 5) for x in losses]}")
+    if len(losses) != TRAIN_STEPS or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"train losses {losses}")
+    init = build_model(cfg).init(        # the example's weights, seed 0
+        torch.Generator(device="cuda").manual_seed(0))
+    same = [n for (n, a), b in zip(params.named_parameters(),
+                                   init.parameters()) if torch.equal(a, b)]
+    n_leaves = len(list(init.parameters()))
+    del init
+    stuck = [n for n in same if params.get_parameter(n).ndim >= 2]
+    if stuck:
+        raise AssertionError(f"{len(stuck)} weight matrices did not change: "
+                             f"{stuck[:4]}")
+    log(f"  {n_leaves - len(same)} of {n_leaves} parameter leaves changed, "
+        f"every weight matrix among them; unchanged: {len(same)} "
+        f"({sorted({n.rsplit('.', 2)[-2] + '.' + n.rsplit('.', 1)[-1] for n in same})})")
+    n_params = sum(p.numel() for p in params.parameters())
+    flops = _train_flops(cfg, n_params)
+    step_s = res["step_s"][TRAIN_WARM:]
+    ms = [s * 1e3 for s in step_s]
+    mean_s = sum(step_s) / len(step_s)
+    tok = TRAIN_BATCH * TRAIN_SEQ
+    log(f"train {ARCH}: step ms (host clock, batch made and copied, ending "
+        f"in a sync; steps {TRAIN_WARM}-{TRAIN_STEPS - 1}) "
+        f"{[round(x, 2) for x in ms]}, mean {mean_s * 1e3:.2f}; "
+        f"{tok / mean_s:.1f} tokens/s; train_mfu {flops / mean_s / BF16_FLOP_PER_S:.4f} "
+        f"({flops / 1e12:.2f} model TFLOP a step over 989 TFLOP/s); peak "
+        f"memory {peak_gb:.2f} GB above the {base_mem / 1e9:.2f} GB held "
+        f"before; {smi}")
+    # one more step, its phases bracketed by CUDA events, then one profiled
+    model = build_model(cfg, ExecConfig(loss_chunk=min(TRAIN_SEQ, 128)))
+    opt = SGD(lr=warmup_cosine(0.05, TRAIN_STEPS // 10 + 1, TRAIN_STEPS))
+    names = [n for n, _ in params.named_parameters()]
+
+    def step(batch, ev=None):
+        mark = (lambda i: ev[i].record()) if ev else (lambda i: None)
+        mark(0)
+        loss, _ = model.loss(params, batch)
+        mark(1)
+        grads = torch.autograd.grad(loss, list(params.parameters()))
+        mark(2)
+        opt.update(dict(zip(names, grads)), state, params)
+        mark(3)
+
+    batch = _train_batch(cfg, TRAIN_STEPS)
+    # the update of one step against the reference's rule, leaf by leaf
+    before = [p.detach().clone() for p in params.parameters()]
+    loss, _ = model.loss(params, batch)
+    grads = torch.autograd.grad(loss, list(params.parameters()))
+    lr = opt._lr(state.step)
+    opt.update(dict(zip(names, grads)), state, params)
+    ratio, wrong = {}, []
+    with torch.no_grad():
+        for (n, p), b, g in zip(params.named_parameters(), before, grads):
+            step_f32 = lr * g.float()
+            if not torch.equal(p, (b.float() - step_f32).to(p.dtype)):
+                wrong.append(n)
+            if n in same:
+                half_ulp = torch.exp2(torch.floor(torch.log2(   # the smaller
+                    b.float().abs().clamp_min(1e-30))) - 9)     # side's
+                ratio[n] = float((step_f32.abs() / half_ulp).max())
+    del before, grads
+    if wrong:
+        raise AssertionError(f"{len(wrong)} leaves not updated as "
+                             f"cast(p32 - lr g32): {wrong[:4]}")
+    log(f"  one more step: every leaf updated bitwise as cast(p32 - lr g32) "
+        f"(lr {float(lr):.5f}); the unmoved leaves' largest step over half "
+        f"a bf16 ulp (the smaller neighbour's): "
+        f"{max(ratio.values()) if ratio else 0:.3f} "
+        f"(below 1: the cast keeps them)")
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    for _ in range(2):
+        step(batch, ev)
+        torch.cuda.synchronize()
+    fwd, bwd, upd = (ev[i].elapsed_time(ev[i + 1]) for i in range(3))
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    t0 = time.perf_counter()
+    with prof:
+        step(batch)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    busy_ms, n_kernels, events = _busy(prof)
+    log(f"train {ARCH} one step by CUDA events: forward {fwd:.2f}ms, "
+        f"backward (remat recompute included) {bwd:.2f}ms, SGD update "
+        f"{upd:.2f}ms; profiled step: device busy {busy_ms:.1f}ms in "
+        f"{n_kernels} kernels, {100 * busy_ms / 1e3 / mean_s:.1f}% of the "
+        f"unprofiled steps' mean {mean_s * 1e3:.1f}ms ({100 * busy_ms / 1e3 / wall:.1f}% "
+        f"of its own {wall * 1e3:.1f}ms wall under the profiler); {smi}")
+    for e in sorted(events, key=lambda e: e.self_device_time_total,
+                    reverse=True)[:10]:
+        log(f"  {e.self_device_time_total / 1e3:8.2f}ms  {e.count:6d}x  "
+            f"{e.key[:90]}")
+    del model, params, state, res
+    gc.collect()
+    torch.cuda.empty_cache()
+    return cfg, launches["flash_attention"]
+
+
+def phase_timing_train(cfg, launches: int, errs, smi: str) -> list:
+    """K5 at the training forward (B 4, S 4096, H 16, D 64, bf16, causal,
+    statistics written) beside SDPA's forward, with the launches of the
+    main path's run; then the plain flash backward at that shape beside
+    SDPA's backward (logged, not a kernel row)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention_bwd)
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    name = "flash_attention[train]"
+    g = torch.Generator(device="cuda").manual_seed(SEED + 21)
+    q, k, v, do = _train_qkv(g)
+    Bq, S, H, D = q.shape
+    scale = D ** -0.5
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+    kernel = lambda: flash_ops._flash_cuda(q, k, v, True, scale, 0,
+                                           stats=True)
+    (k_ms, lib_ms), how = device_times(
+        [kernel, lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                        is_causal=True)],
+        iters=10)
+    pairs = Bq * H * S * (S + 1) // 2                    # causal pairs
+    row = _row(name, "src/repro_torch/kernels/csrc/flash_attention.cu",
+               "src/repro/kernels/flash_attention/kernel.py:84",
+               {name: launches}, errs, k_ms,
+               device_ms(lambda: attention_ref(q, k, v, causal=True), iters=3),
+               lib_ms, 2 * 4 * q.numel() + 4 * Bq * H * S, 4 * D * pairs)
+    log(f"timing, K5 at the training forward (B {Bq} S {S} H {H} D {D}, "
+        f"statistics written): {k_ms * 1e3:.1f}us device, bound "
+        f"{row['bound_ms'] * 1e3:.2f}us ({row['bound_by']}), plain "
+        f"{row['plain_ms'] * 1e3:.1f}us, library {lib_ms * 1e3:.1f}us (SDPA "
+        f"forward; kernel and SDPA by the {how}), launches {launches} "
+        f"({launches // TRAIN_STEPS} a step); {smi}")
+    out, lse = kernel()
+    o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    dot = do.transpose(1, 2).contiguous()
+    (b_ms, sb_ms), how = device_times(
+        [lambda: flash_attention_bwd(q, k, v, out, lse, do, causal=True),
+         lambda: torch.autograd.grad(o, (qt, kt, vt), dot,
+                                     retain_graph=True)], iters=5)
+    b_bytes = 2 * 8 * q.numel() + 4 * Bq * H * S     # q k v out dout dq dk dv, lse
+    b_flops = 5 * 2 * D * pairs                       # S again, dV, dP, dQ, dK
+    b_bound = max(b_bytes / HBM_BYTES_PER_S, b_flops / BF16_FLOP_PER_S) * 1e3
+    log(f"timing, the plain flash backward at the training shape: "
+        f"{b_ms * 1e3:.1f}us device (once per layer: {b_ms * cfg.n_layers:.1f}"
+        f"ms a step), bound {b_bound * 1e3:.2f}us "
+        f"(operations), library {sb_ms * 1e3:.1f}us (SDPA backward; both by "
+        f"the {how}); {smi}")
+    return [row]
 
 
 def main(argv) -> int:
@@ -2476,9 +2855,9 @@ def main(argv) -> int:
     sys.path.insert(0, str(SRC))
     mode = argv[0] if argv else None
     if mode not in (None, "parity", "flash", "gmm", "decode", "ssd",
-                    "profile", "fanout") or len(argv) > 1:
+                    "profile", "fanout", "train") or len(argv) > 1:
         print(f"chip_smoke: arguments {argv}: none, or one of parity, flash, "
-              f"gmm, decode, ssd, profile, fanout", file=sys.stderr)
+              f"gmm, decode, ssd, profile, fanout, train", file=sys.stderr)
         return 2
     parity_only = mode == "parity"        # a new kernel's first, short run
     flash_only = mode == "flash"          # K5 alone: A/B of its designs
@@ -2510,6 +2889,14 @@ def main(argv) -> int:
         from repro_torch.configs import get_config
         for arch in (ARCH, MOE_ARCH, SSM_ARCHS[1]):
             phase_timing_flash({"cfg": get_config(arch)}, 0, errs)
+        phase_timing_fanout_flash(0, errs)
+        log(smi)
+        return 0
+    if mode == "train":                   # the training path alone
+        errs.update(phase_train_parity())
+        phase_train_holds()
+        cfg, train_launches = phase_train(smi)
+        phase_timing_train(cfg, train_launches, errs, smi)
         log(smi)
         return 0
     if gmm_only:
@@ -2582,6 +2969,10 @@ def main(argv) -> int:
         del res
         gc.collect()
         torch.cuda.empty_cache()
+    errs.update(phase_train_parity())
+    phase_train_holds()
+    cfg, train_launches = phase_train(smi)
+    rows += phase_timing_train(cfg, train_launches, errs, smi)
     log(f"chip_smoke: {time.perf_counter() - t0:.1f}s")
     print(smi)
     print(json.dumps({"kernels": rows}))

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 from typing import Dict, List
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import SHAPES, ModelConfig, ShapeConfig
 
 from repro_torch.configs.qwen15_05b import CONFIG as _QWEN15
 from repro_torch.configs.deepseek_moe_16b import CONFIG as _DSMOE
@@ -64,3 +64,20 @@ def smoke_config(arch_id: str) -> ModelConfig:
     if cfg.family == "vlm":
         kw.update(n_image_tokens=4)
     return cfg.with_overrides(**kw)
+
+
+def get_shape(shape_id: str) -> ShapeConfig:
+    try:
+        return SHAPES[shape_id]
+    except KeyError:
+        raise KeyError(
+            f"unknown shape {shape_id!r}; available: {', '.join(SHAPES)}") from None
+
+
+def smoke_shape(kind: str = "train") -> ShapeConfig:
+    """Tiny shape for smoke tests."""
+    if kind == "train":
+        return ShapeConfig("smoke_train", "train", 32, 2)
+    if kind == "prefill":
+        return ShapeConfig("smoke_prefill", "prefill", 32, 2)
+    return ShapeConfig("smoke_decode", "decode", 32, 2)

@@ -148,6 +148,17 @@ class LaunchLog:
                 if c is counter and k is not None}
 
 
+def refuse_grad(what: str, roadmap: str, *tensors: torch.Tensor) -> None:
+    """Raise for a CUDA call that autograd would need a backward for: the
+    kernel has none on the card yet (``roadmap`` names the entry that
+    brings one), and a call that gave no gradient would train silently
+    wrong."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{what}: the kernel has no backward on the card yet (ROADMAP "
+            f"{roadmap!r}); call it under torch.no_grad()")
+
+
 def resolve_device(device) -> torch.device:
     """The device a runtime or state tier was asked for: ``cuda`` (which
     must exist) or ``cpu``; anything else raises."""

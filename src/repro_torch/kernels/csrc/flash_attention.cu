@@ -75,6 +75,19 @@
 // with cuTensorMapEncodeTiled found through the runtime's
 // cudaGetDriverEntryPoint: no driver library is linked.  The operands
 // must be 16-byte aligned, as TMA needs (the wrapper checks it).
+//
+// Softmax statistics (training).  Given a (B, H, Sq) f32 buffer `lse`,
+// both kernels also write each row's log-sum-exp of its scaled, masked
+// scores in natural-log units, m + log(l), at their epilogue: the
+// residual the reference's flash backward recomputes each tile's
+// probabilities from (ops.py:130-173), read there as exp(s - lse).  The
+// tensor-core kernel keeps its running max in log2 units (the scale
+// carries log2 e), so it stores m * ln 2 + log(l).  A row with no valid
+// key (l == 0) stores -1e30: exp(s - lse) then gives 1 on its masked
+// keys, as the reference's m = -1e30, l_safe = 1 does.  Serving passes
+// null and nothing is stored; the tensor-core kernel is then the instance
+// compiled without the store (with it, the serving shapes ran 2-5% slower
+// on an H100; PERF.md).
 #include "common.cuh"
 #include "hopper.cuh"   // mbarriers, TMA, wgmma descriptors, encode_tiled,
                         // sm_count
@@ -112,8 +125,9 @@ constexpr int smem_floats() {
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ out, int Sq, int Sk,
-                 int H, int K, int causal, int q_offset, float scale) {
+                 const T* __restrict__ v, T* __restrict__ out,
+                 float* __restrict__ lse, int Sq, int Sk, int H, int K,
+                 int causal, int q_offset, float scale) {
   extern __shared__ float4 smem4[];
   constexpr int LDK = D + 4;   // lanes read distinct rows: pad off the banks
   float* Qs = reinterpret_cast<float*>(smem4);   // BQ x D, pre-scaled
@@ -223,18 +237,22 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < RPT; ++i) {
     const int r = rg + i * RG;
     if (r < q_rows) {
-      float l = row_l[r];
-      l = (l == 0.f) ? 1.f : l;
+      const float l_row = row_l[r];
+      const float l = (l_row == 0.f) ? 1.f : l_row;
 #pragma unroll
       for (int e = 0; e < 4; ++e) store(ob + r * q_stride + dg * 4 + e, acc[i][e] / l);
+      if (lse != nullptr && dg == 0) {
+        lse[(static_cast<int64_t>(b) * H + h) * Sq + q0 + r] =
+            l_row == 0.f ? kNegInf : row_m[r] + logf(l_row);
+      }
     }
   }
 }
 
 template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int Sq, int Sk, int H, int K, int causal, int q_offset, float scale,
-           cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out, float* lse,
+           int B, int Sq, int Sk, int H, int K, int causal, int q_offset,
+           float scale, cudaStream_t stream) {
   static int smem_limit[kMaxDevices] = {};
   const size_t smem = smem_floats<D>() * sizeof(float);
   const cudaError_t err = raise_smem_limit(flash_fwd_kernel<T, D>,
@@ -243,20 +261,20 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   const dim3 grid((Sq + BQ - 1) / BQ, H, B);
   flash_fwd_kernel<T, D><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), Sq, Sk, H, K, causal,
-      q_offset, scale);
+      static_cast<const T*>(v), static_cast<T*>(out), lse, Sq, Sk, H, K,
+      causal, q_offset, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch_d(int D, const void* q, const void* k, const void* v, void* out,
-             int B, int Sq, int Sk, int H, int K, int causal, int q_offset,
-             float scale, cudaStream_t s) {
+             float* lse, int B, int Sq, int Sk, int H, int K, int causal,
+             int q_offset, float scale, cudaStream_t s) {
   switch (D) {
-    case 16: return launch<T, 16>(q, k, v, out, B, Sq, Sk, H, K, causal, q_offset, scale, s);
-    case 32: return launch<T, 32>(q, k, v, out, B, Sq, Sk, H, K, causal, q_offset, scale, s);
-    case 64: return launch<T, 64>(q, k, v, out, B, Sq, Sk, H, K, causal, q_offset, scale, s);
-    case 128: return launch<T, 128>(q, k, v, out, B, Sq, Sk, H, K, causal, q_offset, scale, s);
+    case 16: return launch<T, 16>(q, k, v, out, lse, B, Sq, Sk, H, K, causal, q_offset, scale, s);
+    case 32: return launch<T, 32>(q, k, v, out, lse, B, Sq, Sk, H, K, causal, q_offset, scale, s);
+    case 64: return launch<T, 64>(q, k, v, out, lse, B, Sq, Sk, H, K, causal, q_offset, scale, s);
+    case 128: return launch<T, 128>(q, k, v, out, lse, B, Sq, Sk, H, K, causal, q_offset, scale, s);
     default: return -1;
   }
 }
@@ -275,6 +293,7 @@ constexpr int PRODUCER_REGS = 56;
 constexpr int CONSUMER_REGS = 224;    // 56 * 128 + 224 * 256 = 168 * 384
 constexpr int BOX = 64;               // columns per TMA box: one 128-byte row
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // Shared memory in bytes, from a 1024-byte aligned base (the 128-byte
 // swizzle repeats every 8 rows of 128 bytes): two Q buffers (BM x D), then
@@ -587,14 +606,17 @@ __device__ __forceinline__ Item item_at(int j, int Sq, int Sk, int H, int B,
 // (warp w, lane l) holds rows r = 16w + l/4 and r + 8; element 4j + 2i + c
 // is row r + 8i, column 8j + 2(l%4) + c.  The same layout, taken 16
 // columns at a time and packed in bf16 pairs, is the register A fragment
-// of the next wgmma: that is how P goes from the scores to P.V.
-template <int D>
+// of the next wgmma: that is how P goes from the scores to P.V.  STATS
+// adds the log-sum-exp store to the epilogue; serving's instance, without
+// it, is compiled as it was before the store existed.
+template <int D, bool STATS>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_tc_kernel(const __grid_constant__ CUtensorMap q_map,
                 const __grid_constant__ CUtensorMap k_map,
                 const __grid_constant__ CUtensorMap v_map,
-                __nv_bfloat16* __restrict__ out, int Sq, int Sk, int H, int K,
-                int B, int causal, int q_offset, float scale_log2) {
+                __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                int Sq, int Sk, int H, int K, int B, int causal, int q_offset,
+                float scale_log2) {
   using S = Smem<D>;
   constexpr int BN = S::BN;
   constexpr int STAGES = S::STAGES;
@@ -786,13 +808,19 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap q_map,
       g += n_kv;
       if (lane == 0) mbar_arrive(q_empty + 8 * qb);  // Q is read: refill it
 
-      // epilogue: O / l in bf16 for the rows below Sq
+      // epilogue: O / l in bf16 for the rows below Sq (and, when asked,
+      // each row's log-sum-exp in natural-log units from one thread of its
+      // quad)
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
         l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
         const int row = r + 8 * i;
         if (row < Sq) {
+          if (STATS && lane % 4 == 0) {
+            lse[(static_cast<int64_t>(it.b) * H + it.h) * Sq + row] =
+                l[i] == 0.f ? kNegInf : fmaf(m[i], kLn2, logf(l[i]));
+          }
           const float inv = 1.f / (l[i] == 0.f ? 1.f : l[i]);
           __nv_bfloat16* dst =
               out + ((static_cast<int64_t>(it.b) * Sq + row) * H + it.h) * D;
@@ -832,21 +860,25 @@ bool make_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int D,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int Sq, int Sk, int H, int K, int causal, int q_offset, float scale,
-           cudaStream_t stream) {
-  if (Sk == 0) {   // no key: every row's sum is 0, so every output is 0
-    return static_cast<int>(cudaMemsetAsync(
-        out, 0, static_cast<size_t>(B) * Sq * H * D * 2, stream));
+__global__ void fill_kernel(float* __restrict__ x, int64_t n, float value) {
+  for (int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
+       i < n; i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    x[i] = value;
   }
+}
+
+template <int D, bool STATS>
+int launch_kernel(const void* q, const void* k, const void* v, void* out,
+                  float* lse, int B, int Sq, int Sk, int H, int K, int causal,
+                  int q_offset, float scale, cudaStream_t stream) {
   // setmaxnreg moves registers within the block's allocation at launch:
   // refuse a build whose allocation could not cover the consumers' share
   // (the increase would wait for ever)
   static int regs_checked = 0;
   if (!regs_checked) {
     cudaFuncAttributes attr;
-    const cudaError_t err = cudaFuncGetAttributes(&attr, flash_tc_kernel<D>);
+    const cudaError_t err =
+        cudaFuncGetAttributes(&attr, flash_tc_kernel<D, STATS>);
     if (err != cudaSuccess) return static_cast<int>(err);
     if (attr.numRegs * THREADS <
         PRODUCER_REGS * 128 + CONSUMER_REGS * 128 * CONSUMERS) {
@@ -864,17 +896,39 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   }
   static int smem_limit[kMaxDevices] = {};
   const cudaError_t err =
-      raise_smem_limit(flash_tc_kernel<D>, Smem<D>::BYTES, smem_limit);
+      raise_smem_limit(flash_tc_kernel<D, STATS>, Smem<D>::BYTES, smem_limit);
   if (err != cudaSuccess) return static_cast<int>(err);
   // persistent blocks: one per SM, each walking its share of the items
   int sms = 0;
   const cudaError_t e = sm_count(&sms);
   if (e != cudaSuccess) return static_cast<int>(e);
   const int n_items = ((Sq + BM - 1) / BM) * H * B;
-  flash_tc_kernel<D><<<min(n_items, sms), THREADS, Smem<D>::BYTES, stream>>>(
-      q_map, k_map, v_map, static_cast<__nv_bfloat16*>(out), Sq, Sk, H, K, B,
-      causal, q_offset, scale * kLog2e);
+  flash_tc_kernel<D, STATS>
+      <<<min(n_items, sms), THREADS, Smem<D>::BYTES, stream>>>(
+          q_map, k_map, v_map, static_cast<__nv_bfloat16*>(out), lse, Sq, Sk,
+          H, K, B, causal, q_offset, scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* out, float* lse,
+           int B, int Sq, int Sk, int H, int K, int causal, int q_offset,
+           float scale, cudaStream_t stream) {
+  if (Sk == 0) {   // no key: every row's sum is 0, so every output is 0
+    if (lse != nullptr) {
+      const int64_t n = static_cast<int64_t>(B) * H * Sq;
+      const int64_t blocks = (n + 255) / 256;
+      fill_kernel<<<static_cast<int>(blocks < 1024 ? blocks : 1024), 256, 0,
+                    stream>>>(lse, n, kNegInf);
+    }
+    return static_cast<int>(cudaMemsetAsync(
+        out, 0, static_cast<size_t>(B) * Sq * H * D * 2, stream));
+  }
+  return lse != nullptr
+             ? launch_kernel<D, true>(q, k, v, out, lse, B, Sq, Sk, H, K,
+                                      causal, q_offset, scale, stream)
+             : launch_kernel<D, false>(q, k, v, out, nullptr, B, Sq, Sk, H, K,
+                                       causal, q_offset, scale, stream);
 }
 
 }  // namespace tc
@@ -882,12 +936,13 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
 // Returns cudaGetLastError() after the launch, or a negative code for
 // arguments the kernels do not take (-1 head dim, -2 dtype, -3 shape, -4
 // an operand not 16-byte aligned).  bf16 at D 64 and D 128 runs on the
-// tensor cores; every other (dtype, D) on the CUDA cores.
+// tensor cores; every other (dtype, D) on the CUDA cores.  `lse` is a
+// (B, H, Sq) f32 buffer for the rows' log-sum-exp, or null.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
-                                   const void* v, void* out, int B, int Sq,
-                                   int Sk, int H, int K, int D, int dtype,
-                                   int causal, int q_offset, float scale,
-                                   void* stream) {
+                                   const void* v, void* out, float* lse,
+                                   int B, int Sq, int Sk, int H, int K, int D,
+                                   int dtype, int causal, int q_offset,
+                                   float scale, void* stream) {
   if (B <= 0 || Sq <= 0 || H <= 0 || Sk < 0 || K <= 0 || H % K != 0) return -3;
   if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out)) % 16) {
@@ -897,11 +952,11 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case kF32:
-      return launch_d<float>(D, q, k, v, out, B, Sq, Sk, H, K, causal, q_offset, scale, s);
+      return launch_d<float>(D, q, k, v, out, lse, B, Sq, Sk, H, K, causal, q_offset, scale, s);
     case kBF16:
-      if (D == 64) return tc::launch<64>(q, k, v, out, B, Sq, Sk, H, K, causal, q_offset, scale, s);
-      if (D == 128) return tc::launch<128>(q, k, v, out, B, Sq, Sk, H, K, causal, q_offset, scale, s);
-      return launch_d<__nv_bfloat16>(D, q, k, v, out, B, Sq, Sk, H, K, causal, q_offset, scale, s);
+      if (D == 64) return tc::launch<64>(q, k, v, out, lse, B, Sq, Sk, H, K, causal, q_offset, scale, s);
+      if (D == 128) return tc::launch<128>(q, k, v, out, lse, B, Sq, Sk, H, K, causal, q_offset, scale, s);
+      return launch_d<__nv_bfloat16>(D, q, k, v, out, lse, B, Sq, Sk, H, K, causal, q_offset, scale, s);
     default:
       return -2;
   }

@@ -1,5 +1,5 @@
-"""Flash-attention forward: the CUDA kernel on the card, the plain version
-on the CPU.
+"""Flash attention: the CUDA kernel's forward on the card, the plain version
+on the CPU; under autograd, the plain flash backward.
 
 Counterpart of ``repro.kernels.flash_attention.ops.flash_attention``.  A
 CUDA tensor goes to ``csrc/flash_attention.cu`` (the port of the Pallas
@@ -7,7 +7,16 @@ kernel: bf16 at head dim 64 and 128 on the tensor cores, every other dtype
 and width on the CUDA cores; the C entry point picks by dtype and D); a
 CPU tensor, or ``backend="torch"``, to :func:`ref.attention_ref`.
 The TPU path's padding to its (8, 128) tiles is gone: the kernel masks the
-ragged edges itself.  The backward pass comes with the training slice.
+ragged edges itself.
+
+Training: on a CUDA tensor in grad mode, when an operand requires grad,
+the call goes through :class:`FlashAttentionFn`.  Its forward is the
+kernel, which also writes each row's log-sum-exp (the reference's saved
+``m`` and ``l``); its backward is :func:`ref.flash_attention_bwd`, the
+counterpart of the reference's ``_flash_xla_bwd`` (plain jnp there: the
+Pallas kernel is forward only).  On the CPU, autograd differentiates
+:func:`ref.attention_ref`.  Nothing falls back: a kernel that fails to
+build or launch raises in training as in serving.
 """
 from __future__ import annotations
 
@@ -19,12 +28,14 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.common import (DTYPE_CODES, HEAD_DIMS,
                                         LaunchCounter, check_operands,
                                         dispatch)
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.ref import (attention_ref,
+                                                     flash_attention_bwd)
 
 LAUNCHES = LaunchCounter()      # kernel launches (chip_smoke reads it)
 
-_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
+_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
              + [ctypes.c_float, ctypes.c_void_p])
+BLOCK_K = 512        # the backward's KV tile: the reference's default block_k
 
 
 def flash_attention(q, k, v, *, causal: bool = True, scale: float | None = None,
@@ -36,10 +47,37 @@ def flash_attention(q, k, v, *, causal: bool = True, scale: float | None = None,
     if dispatch(backend, q) == "torch":
         return attention_ref(q, k, v, causal=causal, scale=scale,
                              q_offset=q_offset)
-    return _flash_cuda(q, k, v, causal, float(scale), int(q_offset))
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttentionFn.apply(q, k, v, causal, float(scale),
+                                      int(q_offset))
+    return _flash_cuda(q, k, v, causal, float(scale), int(q_offset))[0]
 
 
-def _flash_cuda(q, k, v, causal, scale, q_offset):
+class FlashAttentionFn(torch.autograd.Function):
+    """The kernel's forward, saving ``(q, k, v, out, lse)``; the plain
+    flash backward (:func:`ref.flash_attention_bwd`) from them."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale, q_offset):
+        out, lse = _flash_cuda(q, k, v, causal, scale, q_offset, stats=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (causal, scale, q_offset)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        causal, scale, q_offset = ctx.args
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout,
+                                         causal=causal, scale=scale,
+                                         q_offset=q_offset, block_k=BLOCK_K)
+        return dq, dk, dv, None, None, None
+
+
+def _flash_cuda(q, k, v, causal, scale, q_offset, stats: bool = False):
+    """The kernel call: (out, lse), lse the rows' (B, H, Sq) f32
+    log-sum-exp when ``stats`` is asked for, else None."""
     B, Sq, H, D = q.shape
     if k.ndim != 4 or v.shape != k.shape or k.shape[0] != B or k.shape[3] != D:
         raise ValueError(f"flash_attention: q {tuple(q.shape)}, "
@@ -55,13 +93,16 @@ def _flash_cuda(q, k, v, causal, scale, q_offset):
                          f"{tuple(DTYPE_CODES)}")
     check_operands("flash_attention", q, k, v)   # TMA needs 16-byte aligned
     out = torch.empty_like(q)
+    lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+           if stats else None)
     if out.numel() == 0:
-        return out
+        return out, lse
     fn = _build.function("flash_attention", "flash_attention_fwd", _ARGTYPES)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(),
             B, Sq, Sk, H, K, D, DTYPE_CODES[q.dtype], int(causal), q_offset,
             scale, stream)
     _build.check("flash_attention", rc)
     LAUNCHES.add()
-    return out
+    return out, lse

@@ -21,7 +21,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.common import (DTYPE_CODES, LaunchCounter,
-                                        check_operands, dispatch)
+                                        check_operands, dispatch, refuse_grad)
 from repro_torch.kernels.moe_gmm.ref import gmm_ref
 
 # wrapper calls that launched a kernel, also by the (d, f) of the call
@@ -52,6 +52,7 @@ def gmm(x, w, group_sizes, *, backend: str | None = None):
     group_sizes is (E,) int32 on x's device."""
     if dispatch(backend, x) == "torch":
         return gmm_ref(x, w, group_sizes)
+    refuse_grad("moe_gmm", "Sorted MoE dispatch in training", x, w)
     return _gmm_cuda(x, w, group_sizes)
 
 

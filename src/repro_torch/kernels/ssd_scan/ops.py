@@ -23,7 +23,8 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.common import (DTYPE_CODES, LaunchCounter,
-                                        cdiv, check_operands, dispatch)
+                                        cdiv, check_operands, dispatch,
+                                        refuse_grad)
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked
 
 LAUNCHES = LaunchCounter()  # wrapper calls that launched the kernels
@@ -75,6 +76,8 @@ def ssd(x, dt, A, B, C, D_skip, *, chunk: int = 256, initial_state=None,
                                     device=x.device)
     if dispatch(backend, x) == "torch":
         return ssd_chunked(x, dt, A, B, C, D_skip, initial_state, chunk)
+    refuse_grad("ssd_scan", "SSM and hybrid training", x, dt, A, B, C,
+                D_skip, initial_state)
     return _ssd_cuda(x, dt, A, B, C, D_skip, initial_state, chunk)
 
 

@@ -1,0 +1,131 @@
+"""Training launcher: ``python -m repro_torch.launch.train --arch <id> [--smoke]``.
+
+Counterpart of ``python -m repro.launch.train``, with its flags, its
+schedule and optimizers, its checkpoints (the reference's layout: either
+package resumes the other's) and its output lines.  Everything runs on
+the CUDA card (``--device cuda``, the default) and raises when there is
+none; the CPU runs only when asked for (``--device cpu``).  ``--smoke``
+trains the reduced config of the architecture on ``smoke_shape``; without
+it the full config trains at ``--shape`` on one device, the batch split
+into microbatches of ``MICROBATCH_ROWS`` rows (``ExecConfig.microbatches``),
+since the reference's production mesh has no counterpart yet:
+``--multi-pod`` raises (ROADMAP item 8, "Multi-device and dry-run").  Each
+step ends in a sync of the card, and its time goes to the
+``faasm_train_step_ms`` histogram and a ``train.step`` span.  The full
+width on one card at a cut batch is ``examples/train_lm_torch.py``.
+"""
+from __future__ import annotations
+
+import argparse
+from typing import List, Optional
+
+import torch
+
+from repro_torch.checkpoint import Checkpointer
+from repro_torch.configs import get_config, get_shape, smoke_config, smoke_shape
+from repro_torch.data import PipelineConfig, make_batch
+from repro_torch.kernels.common import resolve_device
+from repro_torch.launch.steps import make_train_step
+from repro_torch.models import ExecConfig, build_model
+from repro_torch.models.weights import trainable
+from repro_torch.optim import SGD, AdamW, warmup_cosine
+from repro_torch.telemetry import clock as tclock
+from repro_torch.telemetry import metrics as tmetrics
+from repro_torch.telemetry import spans as tspans
+
+MICROBATCH_ROWS = 4     # rows of 4,096 tokens per microbatch: ~10 GB at d 1024
+
+
+def parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen1.5-0.5b")
+    ap.add_argument("--shape", default="train_4k")
+    ap.add_argument("--smoke", action="store_true",
+                    help="reduced config, single device, tiny batch")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--optimizer", choices=["sgd", "adamw"], default="sgd")
+    ap.add_argument("--lr", type=float, default=0.05)
+    ap.add_argument("--multi-pod", action="store_true")
+    ap.add_argument("--ckpt-dir", default="artifacts/train_ckpt_torch")
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (the default; raises without a card) or cpu")
+    return ap
+
+
+def to_device(batch, device) -> dict:
+    """A numpy batch of ``make_batch`` as tensors on ``device``."""
+    return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+
+
+def main(argv: Optional[List[str]] = None) -> dict:
+    """Trains; returns the losses of the steps it ran and the last step's
+    parameters and optimizer state."""
+    args = parser().parse_args(argv)
+    if args.multi_pod:
+        raise NotImplementedError(
+            "--multi-pod: the production mesh is not ported yet (ROADMAP "
+            "item 8, 'Multi-device and dry-run'); the port trains on one "
+            "device")
+    device = resolve_device(args.device)
+    if args.smoke:
+        cfg = smoke_config(args.arch)
+        shape = smoke_shape("train")
+        ec = ExecConfig(loss_chunk=16)
+    else:
+        cfg = get_config(args.arch)
+        shape = get_shape(args.shape)
+        ec = ExecConfig(loss_chunk=512, microbatches=max(
+            1, shape.global_batch // MICROBATCH_ROWS))
+
+    model = build_model(cfg, ec)
+    sched = warmup_cosine(args.lr, warmup=max(1, args.steps // 10),
+                          total=args.steps)
+    opt = SGD(lr=sched) if args.optimizer == "sgd" else AdamW(lr=sched)
+    ck = Checkpointer(args.ckpt_dir, keep=2)
+
+    print(f"train {cfg.name}: {cfg.param_count() / 1e6:.1f}M params, "
+          f"{shape.name}, opt={args.optimizer}")
+
+    step_fn = make_train_step(model, opt, shape)
+    params = trainable(model.init(
+        torch.Generator(device=device).manual_seed(0), device))
+    state = opt.init(params)
+    start = 0
+    if args.resume and ck.latest_step() is not None:
+        (params, state), start, _ = ck.restore((params, state))
+        print(f"resumed at step {start}")
+
+    pc = PipelineConfig(seed=0)
+    # step timing flows through the telemetry registry; the printed log
+    # reads the histogram back, so it and any scrape agree by construction
+    hist = tmetrics.registry().histogram("faasm_train_step_ms")
+    tel = tspans.tracer()
+    losses = []
+    for step in range(start, args.steps):
+        s0 = tclock.now()
+        batch = to_device(make_batch(cfg, shape, pc, step), device)
+        params, state, metrics = step_fn(params, state, batch)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        s1 = tclock.now()
+        hist.observe((s1 - s0) * 1e3)
+        if tel is not None:
+            tel.record("train.step", "train", s0, s1, step=step)
+        losses.append(metrics["loss"])
+        if step % 10 == 0 or step == args.steps - 1:
+            print(f"step {step:5d} loss {float(metrics['loss']):8.4f} "
+                  f"gnorm {float(metrics['grad_norm']):8.3f} "
+                  f"({hist.sum / 1e3:6.1f}s, "
+                  f"p50 {hist.percentile(0.5):5.0f}ms)")
+        if args.ckpt_every and step and step % args.ckpt_every == 0:
+            ck.save(step, (params, state))
+    ck.save(args.steps, (params, state), blocking=True)
+    print("done")
+    return {"losses": [float(x) for x in losses], "params": params,
+            "state": state}
+
+
+if __name__ == "__main__":
+    main()

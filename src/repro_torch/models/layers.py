@@ -1,12 +1,11 @@
-"""Shared neural-net layers: norms, RoPE, MLPs, embeddings.
+"""Shared neural-net layers: norms, RoPE, MLPs, embeddings, chunked loss.
 
 Dense subset of ``repro.models.layers``.  Each layer is an ``nn.Module``
 that holds its parameters in the JAX package's layout (``x @ w`` with
 ``w`` of shape (in, out)), and a plain function on tensors that applies
-it, taking the module as ``p`` as the JAX functions take a dict.  The
-training loss (``softmax_xent``, ``chunked_loss``) comes with the
-training slice.  ``seq_shard_constraint`` is dropped: it constrains GSPMD
-sharding and is a no-op on one device.
+it, taking the module as ``p`` as the JAX functions take a dict.
+``seq_shard_constraint`` is dropped: it constrains GSPMD sharding and is
+a no-op on one device.
 """
 from __future__ import annotations
 
@@ -16,6 +15,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 
@@ -130,7 +130,7 @@ def mlp_apply(p: MLP, cfg: ModelConfig, x):
 
 
 # ---------------------------------------------------------------------------
-# Embedding / unembedding
+# Embedding / unembedding with chunked fused loss
 # ---------------------------------------------------------------------------
 
 def embed_apply(p, cfg: ModelConfig, tokens):
@@ -145,3 +145,39 @@ def logits_apply(p, cfg: ModelConfig, h):
     """f32 logits, as every caller of the JAX package asks for them."""
     w = unembed_matrix(p, cfg)
     return (h @ w.to(h.dtype)).float()
+
+
+def softmax_xent(logits, targets, mask):
+    """Masked cross-entropy: (sum of the masked rows' nll, sum of the mask).
+    logits: (..., V), taken in f32; targets int; mask {0,1}."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    nll = (lse - gold) * mask
+    return nll.sum(), mask.sum()
+
+
+def chunked_loss(p, cfg: ModelConfig, h, targets, mask, chunk: int):
+    """Fused unembed + cross-entropy over sequence chunks.
+
+    Keeps the full (B, S, V) logit tensor from ever existing: each chunk's
+    logits live inside one checkpointed call and are recomputed in the
+    backward pass (the reference's scan body under ``jax.checkpoint``).
+    One chunk when ``chunk <= 0``, ``S <= chunk`` or ``S % chunk != 0``, as
+    there.  h: (B, S, d); targets/mask: (B, S).  Returns the mean nll over
+    the mask (its sum at least 1).
+    """
+    B, S, d = h.shape
+    if chunk <= 0 or S <= chunk or S % chunk != 0:
+        nll, denom = softmax_xent(logits_apply(p, cfg, h), targets, mask)
+        return nll / denom.clamp_min(1.0)
+
+    def body(h_c, t_c, m_c):
+        return softmax_xent(logits_apply(p, cfg, h_c), t_c, m_c)
+
+    nll = denom = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(0, S, chunk):
+        n, m = checkpoint(body, h[:, i:i + chunk], targets[:, i:i + chunk],
+                          mask[:, i:i + chunk], use_reentrant=False)
+        nll, denom = nll + n, denom + m
+    return nll / denom.clamp_min(1.0)

@@ -41,6 +41,11 @@ class Model:
         card unless ``"cpu"`` is named; raises without a card)."""
         return self._mod.init_params(rng, self.cfg, resolve_device(device))
 
+    # -- training ----------------------------------------------------------------
+    def loss(self, params, batch):
+        """(loss, metrics) for a train batch (tensors tokens/targets/mask)."""
+        return self._mod.forward_train(params, self.cfg, self.ec, batch)
+
     def logits(self, params, tokens):
         return self._mod.forward_logits(params, self.cfg, self.ec, tokens)
 

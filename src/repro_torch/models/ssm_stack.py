@@ -115,6 +115,15 @@ def forward_hidden(params: SSMStack, cfg: ModelConfig, ec: ExecConfig,
             torch.zeros((), dtype=torch.float32, device=h.device))
 
 
+def forward_train(params: SSMStack, cfg: ModelConfig, ec: ExecConfig, batch):
+    """Not ported yet: the SSD scan (K8) has no backward on the card, and a
+    plain path standing in for it there would hide that."""
+    raise NotImplementedError(
+        f"{cfg.name}: training of the {cfg.family} family is not ported yet "
+        f"(ROADMAP 'SSM and hybrid training': K8 needs a backward on the "
+        f"card)")
+
+
 def forward_logits(params: SSMStack, cfg: ModelConfig, ec: ExecConfig, tokens,
                    image_embeds=None):
     h, _ = forward_hidden(params, cfg, ec, tokens, train=False)

@@ -7,15 +7,22 @@ layers on a leading axis and runs them with ``lax.scan``; here they are an
 stacked (L, B, S_max, K, D) layout so each layer writes its slice in
 place.  MoE configs with ``first_k_dense`` keep those leading dense layers
 in ``first_layers`` (unstacked in the reference too) with their own
-``first_k``/``first_v`` cache, written in place as well.  ``remat`` is
-dropped (serving does not differentiate) and so is
-``seq_shard_constraint`` (a no-op on one device).  The VLM branch raises
-until its slice is ported.
+``first_k``/``first_v`` cache, written in place as well.  Training
+(``forward_train``) runs each stacked layer under ``ExecConfig.remat``, as
+the reference's scan body: ``torch.utils.checkpoint`` for ``"full"``, a
+selective checkpoint that keeps the weight matmuls' outputs for
+``"dots"``; serving's forward never rematerialises.
+``seq_shard_constraint`` is dropped (a no-op on one device).  The VLM
+branch raises until its slice is ported.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
@@ -122,6 +129,30 @@ def block_decode(lp, cfg, ec, h, ck, cv, index):
     return h + delta, ck, cv
 
 
+_SAVED_BY_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """``dots_with_no_batch_dims_saveable``: keep what a matmul without a
+    batch dimension returns (the weight products ``x @ w``, which reach
+    ATen as ``mm``/``addmm``), recompute everything else."""
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_BY_DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _maybe_remat(fn, ec: ExecConfig):
+    if ec.remat == "none":
+        return fn
+    if ec.remat == "dots":
+        return functools.partial(
+            checkpoint, fn, use_reentrant=False,
+            context_fn=lambda: create_selective_checkpoint_contexts(
+                _dots_policy))
+    if ec.remat == "full":
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    raise ValueError(f"remat {ec.remat!r}: none, full or dots")
+
+
 # ---------------------------------------------------------------------------
 # Parameter init
 # ---------------------------------------------------------------------------
@@ -147,17 +178,31 @@ def _embed_inputs(params: Transformer, cfg: ModelConfig, tokens,
 
 def forward_hidden(params: Transformer, cfg: ModelConfig, ec: ExecConfig,
                    tokens, image_embeds=None, train: bool = True):
-    """Returns (h (B, S, d) post-final-norm, aux_loss).  ``train`` is kept
-    for the signature; it selected remat and sharding, both dropped."""
+    """Returns (h (B, S, d) post-final-norm, aux_loss).  With ``train`` the
+    stacked layers run under ``ec.remat`` (the leading dense layers of an
+    MoE config do not, as in the reference)."""
     h = _embed_inputs(params, cfg, tokens, image_embeds)
     S = h.shape[1]
     positions = torch.arange(S, device=h.device) if cfg.use_rope else None
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    for lp in (*_first_layers(params), *params.layers):
-        h, a = block_full(lp, cfg, ec, h, positions)
+    for lp in _first_layers(params):          # dense: no aux
+        h, _ = block_full(lp, cfg, ec, h, positions)
+    block = _maybe_remat(block_full, ec) if train else block_full
+    for lp in params.layers:
+        h, a = block(lp, cfg, ec, h, positions)
         if a is not None:
             aux = aux + a
     return L.norm_apply(params.final_norm, cfg, h), aux
+
+
+def forward_train(params: Transformer, cfg: ModelConfig, ec: ExecConfig,
+                  batch):
+    """batch: tokens/targets/mask tensors.  Returns (loss + aux, metrics)."""
+    h, aux = forward_hidden(params, cfg, ec, batch["tokens"],
+                            batch.get("image_embeds"), train=True)
+    loss = L.chunked_loss(params, cfg, h, batch["targets"], batch["mask"],
+                          ec.loss_chunk)
+    return loss + aux, {"loss": loss, "aux_loss": aux}
 
 
 def forward_logits(params: Transformer, cfg: ModelConfig, ec: ExecConfig,

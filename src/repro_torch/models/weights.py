@@ -1,5 +1,5 @@
-"""Parameters of the port's models: drawn from a seed, or loaded from
-the JAX model's parameter tree.
+"""Parameters of the port's models: drawn from a seed, loaded from the JAX
+model's parameter tree, or written back to that tree's layout.
 
 ``from_jax_params`` takes the tree ``repro.models.transformer.init_params``
 or ``repro.models.ssm_stack.init_params`` builds — nested dicts with the
@@ -9,17 +9,23 @@ dense layers as a list of unstacked dicts — as numpy arrays
 weights.  ``init_params`` draws fresh weights with the JAX
 package's distributions from a ``torch.Generator``: ``jax.random`` streams
 cannot be reproduced in torch, so it matches them in distribution only.
+``to_jax_params`` is the inverse of ``from_jax_params`` (the tests
+compare gradients leaf by leaf through it, the checkpointer writes the
+reference's layout with it), and ``trainable`` turns on the gradients of
+a model's parameters for the training path: serving's stay off, so its
+captured graphs record no autograd.
 
-Neither imports ``ml_dtypes``: a bf16 leaf is recognised by its dtype's
-name and reinterpreted through its 16-bit pattern, which is how
-``torch.from_numpy`` can take it.
+None of them imports ``ml_dtypes``: a bf16 leaf is recognised by its
+dtype's name and reinterpreted through its 16-bit pattern, which is how
+``torch.from_numpy`` can take it, and it leaves as :class:`Bits`.
 """
 from __future__ import annotations
 
-from typing import Any, Mapping
+from typing import Any, Mapping, NamedTuple, Union
 
 import numpy as np
 import torch
+from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import trunc_normal
@@ -33,13 +39,36 @@ def params_class(cfg: ModelConfig):
     return build_model(cfg)._mod.Params
 
 
+class Bits(NamedTuple):
+    """A leaf whose dtype numpy has only through ``ml_dtypes`` (bf16): its
+    bit pattern as uint16 and the dtype's name, as the reference's
+    checkpointer stores it."""
+    bits: np.ndarray
+    dtype: str
+
+
 def numpy_to_torch(a) -> torch.Tensor:
-    """A numpy array (ml_dtypes bfloat16 included) as a CPU tensor."""
+    """A numpy array (ml_dtypes bfloat16 included) or :class:`Bits` as a
+    CPU tensor."""
+    if isinstance(a, Bits):
+        if a.dtype != "bfloat16":
+            raise ValueError(f"no torch dtype for {a.dtype} bits")
+        return torch.from_numpy(np.array(a.bits, dtype=np.uint16).view(
+            np.int16)).view(torch.bfloat16)
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(np.ascontiguousarray(a).view(np.uint16).copy()
                                 ).view(torch.bfloat16)
     return torch.from_numpy(np.array(a, copy=True))
+
+
+def torch_to_numpy(t: torch.Tensor) -> Union[np.ndarray, Bits]:
+    """A copy of a tensor on the host: a numpy array, or :class:`Bits` for
+    bf16."""
+    t = t.detach().to("cpu", copy=True)
+    if t.dtype == torch.bfloat16:
+        return Bits(t.view(torch.int16).numpy().view(np.uint16), "bfloat16")
+    return t.numpy()
 
 
 def jax_leaf(tree: Mapping[str, Any], name: str):
@@ -51,7 +80,10 @@ def jax_leaf(tree: Mapping[str, Any], name: str):
         node = tree["layers"]
         for p in parts[2:]:
             node = node[p]
-        return np.asarray(node)[int(parts[1])]
+        i = int(parts[1])
+        if isinstance(node, Bits):
+            return Bits(node.bits[i], node.dtype)
+        return np.asarray(node)[i]
     node = tree
     for p in parts:
         node = node[int(p)] if isinstance(node, (list, tuple)) else node[p]
@@ -59,10 +91,8 @@ def jax_leaf(tree: Mapping[str, Any], name: str):
 
 
 @torch.no_grad()
-def from_jax_params(tree: Mapping[str, Any], cfg: ModelConfig, device):
-    """The model of ``cfg``'s family (:func:`params_class`) on ``device``,
-    holding the JAX tree's values."""
-    model = params_class(cfg)(cfg, device=device)
+def load_jax_params(model: nn.Module, tree: Mapping[str, Any]) -> nn.Module:
+    """Copy the JAX tree's values into ``model``'s parameters, in place."""
     for name, p in model.named_parameters():
         src = numpy_to_torch(jax_leaf(tree, name))
         if tuple(src.shape) != tuple(p.shape):
@@ -70,6 +100,68 @@ def from_jax_params(tree: Mapping[str, Any], cfg: ModelConfig, device):
                              f"port {tuple(p.shape)}")
         p.copy_(src.to(p.dtype))
     return model
+
+
+def from_jax_params(tree: Mapping[str, Any], cfg: ModelConfig, device):
+    """The model of ``cfg``'s family (:func:`params_class`) on ``device``,
+    holding the JAX tree's values."""
+    return load_jax_params(params_class(cfg)(cfg, device=device), tree)
+
+
+def _stack(leaves):
+    if isinstance(leaves[0], Bits):
+        return Bits(np.stack([b.bits for b in leaves]), leaves[0].dtype)
+    return np.stack(leaves)
+
+
+def _lists(node):
+    """Nested dicts whose keys are all digits become lists."""
+    if not isinstance(node, dict):
+        return node
+    if node and all(k.isdigit() for k in node):
+        return [_lists(node[str(i)]) for i in range(len(node))]
+    return {k: _lists(v) for k, v in node.items()}
+
+
+def to_jax_params(params, cfg: ModelConfig) -> dict:
+    """The inverse of :func:`from_jax_params`: the reference's parameter
+    tree of ``cfg``'s family, with numpy leaves (bf16 ones as
+    :class:`Bits`), from a model (:func:`params_class`) or from a mapping
+    of its parameter names to tensors (its gradients, say).  The layers
+    are stacked on a leading (L, ...) axis, an MoE config's leading dense
+    layers kept as a list, and the keys are the reference's."""
+    named = dict(params.named_parameters() if isinstance(params, nn.Module)
+                 else params.items())
+    want = [n for n, _ in params_class(cfg)(cfg, device="meta")
+            .named_parameters()]
+    if sorted(named) != sorted(want):
+        raise ValueError(f"{cfg.name}: {sorted(set(named) ^ set(want))} "
+                         f"not both in the model and in what was given")
+    tree, stacks = {}, {}
+    for name in want:
+        parts = name.split(".")
+        leaf = torch_to_numpy(named[name])
+        if parts[0] == "layers":
+            stacks.setdefault(tuple(parts[2:]), []).append(leaf)
+            continue
+        node = tree
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = leaf
+    for path, leaves in stacks.items():
+        node = tree.setdefault("layers", {})
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = _stack(leaves)
+    return _lists(tree)
+
+
+def trainable(params: nn.Module) -> nn.Module:
+    """Turn on the gradients of every parameter of ``params`` (the training
+    path; the parameters are made with them off)."""
+    for p in params.parameters():
+        p.requires_grad_(True)
+    return params
 
 
 @torch.no_grad()

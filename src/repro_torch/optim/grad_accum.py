@@ -1,0 +1,54 @@
+"""Gradient accumulation (microbatching) over the loss function.
+
+Counterpart of ``repro.optim.grad_accum``: slices the step's batch into
+``n`` microbatches along the batch axis and accumulates mean gradients,
+which bounds activation memory for the big train cells (the microbatch
+count is an ``ExecConfig`` lever).  The reference's scan is a Python loop
+here, each microbatch's gradient added into the accumulator before the
+next one runs.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Dict
+
+import torch
+from torch import nn
+
+
+def _grads(loss_fn: Callable, params: nn.Module, batch):
+    """(loss, metrics, gradients in parameter order) of one batch; a
+    parameter the loss does not reach gets zeros, as in JAX."""
+    ps = list(params.parameters())
+    loss, metrics = loss_fn(params, batch)
+    gs = torch.autograd.grad(loss, ps, allow_unused=True)
+    gs = [torch.zeros_like(p) if g is None else g for g, p in zip(gs, ps)]
+    return loss.detach(), {k: v.detach() for k, v in metrics.items()}, gs
+
+
+def accumulate_grads(loss_fn: Callable, params: nn.Module,
+                     batch: Dict[str, Any], n_micro: int,
+                     accum_dtype=torch.float32):
+    """loss_fn(params, batch) -> (loss, metrics).  Returns (grads, loss,
+    metrics): grads maps each parameter's name to its gradient (its own
+    dtype for one microbatch, ``accum_dtype`` over several), loss is the
+    microbatches' mean, metrics the last one's.  The parameters must
+    require grad (``models.weights.trainable``).
+
+    ``accum_dtype=torch.bfloat16`` halves accumulator memory — the lever
+    that lets the 1T-param config fit (paper-style SGD tolerates the
+    precision)."""
+    names = [n for n, _ in params.named_parameters()]
+    if n_micro <= 1:
+        loss, metrics, gs = _grads(loss_fn, params, batch)
+        return dict(zip(names, gs)), loss, metrics
+    mb = next(iter(batch.values())).shape[0] // n_micro
+    acc = [torch.zeros(p.shape, dtype=accum_dtype, device=p.device)
+           for p in params.parameters()]
+    loss_sum = torch.zeros((), dtype=torch.float32, device=acc[0].device)
+    for i in range(n_micro):
+        micro = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
+        loss, metrics, gs = _grads(loss_fn, params, micro)
+        torch._foreach_add_(acc, [g.to(accum_dtype) for g in gs])
+        loss_sum = loss_sum + loss
+    grads = torch._foreach_div(acc, n_micro)
+    return dict(zip(names, grads)), loss_sum / n_micro, metrics

@@ -1,0 +1,149 @@
+"""Optimizers: SGD (the paper's HOGWILD! training optimizer, §6.2) and
+AdamW.
+
+Counterpart of ``repro.optim.sgd``, with its names, defaults and math: the
+update is taken in f32 and cast to each parameter's dtype (bf16 in the
+served configs), AdamW's bias correction and decoupled weight decay as
+there, and a callable ``lr`` (``warmup_cosine``) is read at the state's
+step counter, a 0-d int32 tensor on the parameters' device, so that no
+step waits on the host.  Where the reference returns new pytrees, these
+update the parameters in place under ``torch.no_grad()`` (``_foreach``
+ops over the leaves) and return them.  The per-parameter state (SGD's
+momentum, AdamW's moments) is a module of the parameters' own class, one
+buffer per parameter under its name: the counterpart of the reference's
+state pytree shaped like the params, and what the checkpointer writes in
+that layout.  Gradients are a mapping from parameter names to tensors
+(``accumulate_grads``).  ``torch.optim`` is not used: it would update
+bf16 parameters in bf16 arithmetic where the reference works in f32.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable, Mapping, NamedTuple, Tuple
+
+import torch
+from torch import nn
+
+
+class SGDState(NamedTuple):
+    step: torch.Tensor
+    momentum: Any                      # a module like the params, or ()
+
+
+def zeros_like_params(params: nn.Module, dtype=None) -> nn.Module:
+    """A module of ``params``'s class on its device, every parameter zero
+    (in ``dtype`` when given, else in its own)."""
+    device = next(params.parameters()).device
+    out = type(params)(params.cfg, device="meta").to_empty(device=device)
+    if dtype is not None:
+        out = out.to(dtype)
+    with torch.no_grad():
+        for p in out.parameters():
+            p.zero_()
+    return out
+
+
+def _step0(params: nn.Module) -> torch.Tensor:
+    return torch.zeros((), dtype=torch.int32,
+                       device=next(params.parameters()).device)
+
+
+def _apply(params: nn.Module, upd, lr, weight_decay: float) -> None:
+    """p <- cast(p32 - lr * (upd + weight_decay * p32)), in place; ``upd``
+    f32 tensors in parameter order (not written to)."""
+    ps = list(params.parameters())
+    p32 = [p.float() for p in ps]
+    if weight_decay:
+        upd = torch._foreach_add(upd, p32, alpha=weight_decay)
+    upd = torch._foreach_mul(upd, lr)
+    torch._foreach_sub_(p32, upd)
+    torch._foreach_copy_(ps, p32)
+
+
+@dataclasses.dataclass(frozen=True)
+class SGD:
+    lr: float | Callable[[torch.Tensor], torch.Tensor] = 1e-2
+    momentum: float = 0.0
+    weight_decay: float = 0.0
+
+    def init(self, params: nn.Module) -> SGDState:
+        mom = zeros_like_params(params) if self.momentum else ()
+        return SGDState(step=_step0(params), momentum=mom)
+
+    def _lr(self, step):
+        return self.lr(step) if callable(self.lr) else self.lr
+
+    @torch.no_grad()
+    def update(self, grads: Mapping[str, torch.Tensor], state: SGDState,
+               params: nn.Module) -> Tuple[nn.Module, SGDState]:
+        lr = self._lr(state.step)
+        gs = [grads[n] for n, _ in params.named_parameters()]
+        if self.momentum:
+            ms = list(state.momentum.parameters())
+            torch._foreach_mul_(ms, self.momentum)
+            torch._foreach_add_(ms, [g.to(m.dtype) for g, m in zip(gs, ms)])
+            gs = ms
+        _apply(params, [g.float() for g in gs], lr, self.weight_decay)
+        return params, SGDState(step=state.step + 1, momentum=state.momentum)
+
+
+class AdamWState(NamedTuple):
+    step: torch.Tensor
+    mu: Any
+    nu: Any
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamW:
+    lr: float | Callable[[torch.Tensor], torch.Tensor] = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+
+    def init(self, params: nn.Module) -> AdamWState:
+        return AdamWState(step=_step0(params),
+                          mu=zeros_like_params(params, torch.float32),
+                          nu=zeros_like_params(params, torch.float32))
+
+    def _lr(self, step):
+        return self.lr(step) if callable(self.lr) else self.lr
+
+    @torch.no_grad()
+    def update(self, grads: Mapping[str, torch.Tensor], state: AdamWState,
+               params: nn.Module) -> Tuple[nn.Module, AdamWState]:
+        step = state.step + 1
+        lr = self._lr(state.step)
+        b1, b2 = self.b1, self.b2
+        bc1 = 1.0 - b1 ** step.float()
+        bc2 = 1.0 - b2 ** step.float()
+        g32 = [grads[n].float() for n, _ in params.named_parameters()]
+        mu, nu = list(state.mu.parameters()), list(state.nu.parameters())
+        torch._foreach_mul_(mu, b1)
+        torch._foreach_add_(mu, g32, alpha=1 - b1)
+        torch._foreach_mul_(nu, b2)
+        torch._foreach_addcmul_(nu, g32, g32, value=1 - b2)
+        upd = torch._foreach_div(mu, bc1)
+        den = torch._foreach_div(nu, bc2)
+        torch._foreach_sqrt_(den)
+        torch._foreach_add_(den, self.eps)
+        torch._foreach_div_(upd, den)
+        _apply(params, upd, lr, self.weight_decay)
+        return params, AdamWState(step=step, mu=state.mu, nu=state.nu)
+
+
+def warmup_cosine(peak_lr: float, warmup: int, total: int,
+                  floor: float = 0.1):
+    """LR schedule usable as the ``lr`` field of either optimizer: a
+    function of the step counter (a tensor), computed in f32 on its
+    device."""
+
+    def sched(step):
+        step = step.float()
+        warm = peak_lr * (step + 1) / max(warmup, 1)
+        t = torch.clamp((step - warmup) / max(total - warmup, 1), 0.0, 1.0)
+        cos = peak_lr * (floor + (1 - floor) * 0.5 * (1 + torch.cos(math.pi * t)))
+        return torch.where(step < warmup, warm, cos)
+
+    return sched

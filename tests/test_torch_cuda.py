@@ -1068,3 +1068,167 @@ def test_a_restored_faaslet_copies_from_pinned_leaves(card):
         assert all(state["params"] is template["params"] for state in states)
     finally:
         rt.shutdown()
+
+
+# -- training: K5's statistics, FlashAttentionFn, the train step -------------------
+
+STATS_CASES = [c for c in FLASH_CASES if c[2] > 0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", STATS_CASES)
+def test_flash_kernel_statistics_on_card(card, case, dtype):
+    """Both kernels' row log-sum-exp (the CUDA-core kernel in f32 and at D
+    16 and 32, the tensor-core kernel in bf16 at D 64 and 128) against the
+    plain version's, at the f32 tolerance (f32 sums of the same products);
+    the output is the one the call without statistics gives."""
+    B, Sq, Sk, H, K, D, causal, off = case
+    rng = np.random.default_rng(1)
+    q = _randn(rng, (B, Sq, H, D), dtype, card)
+    k, v = (_randn(rng, (B, Sk, K, D), dtype, card) for _ in range(2))
+    out, lse = flash_ops._flash_cuda(q, k, v, causal, D ** -0.5, off,
+                                     stats=True)
+    torch.cuda.synchronize()
+    assert lse.shape == (B, H, Sq) and lse.dtype == torch.float32
+    assert torch.equal(out, flash_attention(q, k, v, causal=causal,
+                                            q_offset=off))
+    _, want = attention_ref(q, k, v, causal=causal, q_offset=off,
+                            return_stats=True)
+    torch.testing.assert_close(lse, want, atol=TOL[torch.float32],
+                               rtol=TOL[torch.float32])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_kernel_statistics_without_keys(card, dtype):
+    q = torch.ones(2, 5, 4, 64, dtype=dtype, device=card)
+    kv = torch.ones(2, 0, 4, 64, dtype=dtype, device=card)
+    out, lse = flash_ops._flash_cuda(q, kv, kv, False, 0.125, 0, stats=True)
+    torch.cuda.synchronize()
+    assert int(out.abs().sum()) == 0 and bool((lse == -1e30).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", [FLASH_CASES[i] for i in (1, 3, 4, 9, 10)])
+def test_flash_attention_fn_gradients_on_card(card, case, dtype):
+    """K5 forward, plain flash backward: the gradients against autograd
+    through ``attention_ref`` on the same CUDA tensors."""
+    B, Sq, Sk, H, K, D, causal, off = case
+    rng = np.random.default_rng(2)
+    q = _randn(rng, (B, Sq, H, D), dtype, card)
+    k, v = (_randn(rng, (B, Sk, K, D), dtype, card) for _ in range(2))
+    do = _randn(rng, (B, Sq, H, D), dtype, card)
+    xs = [t.clone().requires_grad_() for t in (q, k, v)]
+    n = flash_ops.LAUNCHES.value
+    out = flash_attention(*xs, causal=causal, q_offset=off)
+    assert out.grad_fn is not None and "FlashAttentionFn" in \
+        type(out.grad_fn).__name__
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert flash_ops.LAUNCHES.value == n + 1
+    ys = [t.clone().requires_grad_() for t in (q, k, v)]
+    attention_ref(*ys, causal=causal, q_offset=off).backward(do)
+    for a, b in zip(xs, ys):
+        _close(a.grad, b.grad, dtype)
+
+
+@pytest.mark.cuda
+def test_k7_and_k8_under_grad_raise(card):
+    x = torch.zeros(64, 64, device=card, requires_grad=True)
+    w = torch.zeros(2, 64, 64, device=card)
+    gs = torch.tensor([32, 32], dtype=torch.int32, device=card)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        gmm(x, w, gs)
+    with torch.no_grad():
+        gmm(x, w, gs)                          # no gradient asked: runs
+    Bt, S, H, P, G, N = 1, 32, 2, 16, 1, 16
+    xs = torch.zeros(Bt, S, H, P, device=card, requires_grad=True)
+    dt = torch.full((Bt, S, H), 0.1, device=card)
+    A, D = -torch.ones(H, device=card), torch.ones(H, device=card)
+    Bm = torch.zeros(Bt, S, G, N, device=card)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        ssd(xs, dt, A, Bm, Bm, D)
+    with torch.no_grad():
+        ssd(xs, dt, A, Bm, Bm, D)
+
+
+def _train_setup(card, dtype, remat="full"):
+    from repro_torch.configs import smoke_shape
+    from repro_torch.data import PipelineConfig, make_batch
+    from repro_torch.models.weights import trainable
+    cfg = smoke_config("qwen1.5-0.5b").with_overrides(dtype=dtype,
+                                                      param_dtype=dtype)
+    params = trainable(build_model(cfg).init(
+        torch.Generator(device=card).manual_seed(0), card))
+    batch = {k: torch.from_numpy(v).to(card) for k, v in make_batch(
+        cfg, smoke_shape("train"), PipelineConfig(seed=0), 0).items()}
+    return cfg, params, batch
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_smoke_train_step_kernel_path_matches_plain_path(card, dtype):
+    """One ``make_train_step`` step (SGD) from the same weights: the loss
+    and the updated parameters, kernel path against ``backend="torch"``."""
+    import copy
+    from repro_torch.configs import smoke_shape
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import SGD
+    cfg, params, batch = _train_setup(card, dtype)
+    tol = 1e-4 if dtype == "float32" else 5e-2
+    out = {}
+    for backend in ("auto", "torch"):
+        p = copy.deepcopy(params)
+        model = build_model(cfg, ExecConfig(backend=backend, loss_chunk=16))
+        opt = SGD(lr=0.05)
+        step = make_train_step(model, opt, smoke_shape("train"))
+        p, _, metrics = step(p, opt.init(p), batch)
+        out[backend] = (float(metrics["loss"]), p)
+    assert out["auto"][0] == pytest.approx(out["torch"][0], rel=tol, abs=tol)
+    for a, b in zip(out["auto"][1].parameters(), out["torch"][1].parameters()):
+        torch.testing.assert_close(a, b, atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("remat,per_layer", [("none", 1), ("full", 2),
+                                             ("dots", 2)])
+def test_k5_launches_per_train_step(card, remat, per_layer):
+    """K5 once per layer in the forward, once more in the remat recompute
+    (``full`` and ``dots``: K5's output is no weight matmul's)."""
+    cfg, params, batch = _train_setup(card, "bfloat16")
+    model = build_model(cfg, ExecConfig(remat=remat, loss_chunk=16))
+    n = flash_ops.LAUNCHES.value
+    loss, _ = model.loss(params, batch)
+    torch.autograd.grad(loss, list(params.parameters()))
+    torch.cuda.synchronize()
+    assert flash_ops.LAUNCHES.value - n == per_layer * cfg.n_layers
+
+
+@pytest.mark.cuda
+def test_checkpoint_round_trip_on_card(card, tmp_path):
+    """Parameters and SGD momentum saved from the card restore onto the card
+    bitwise, in place, in the reference's layout."""
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.optim import SGD
+    cfg, params, _ = _train_setup(card, "bfloat16")
+    opt = SGD(momentum=0.9)
+    state = opt.init(params)
+    with torch.no_grad():
+        for m in state.momentum.parameters():
+            m.normal_()
+    ck = Checkpointer(str(tmp_path))
+    ck.save(5, (params, state), blocking=True)
+    fresh = build_model(cfg).init(torch.Generator(device=card).manual_seed(1),
+                                  card)
+    fstate = opt.init(fresh)
+    (got, gstate), step, _ = ck.restore((fresh, fstate))
+    assert step == 5 and got is fresh and gstate.step.device.type == "cuda"
+    for a, b in zip(got.parameters(), params.parameters()):
+        assert a.device.type == "cuda" and torch.equal(a, b)
+    for a, b in zip(gstate.momentum.parameters(), state.momentum.parameters()):
+        assert torch.equal(a, b)

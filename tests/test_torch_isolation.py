@@ -17,6 +17,7 @@ from repro_torch.state.kv import GlobalTier
 REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + \
     [REPO / "chip_smoke.py", REPO / "examples" / "inference_serving_torch.py",
+     REPO / "examples" / "train_lm_torch.py",
      REPO / "benchmarks" / "bench_inference_torch.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
@@ -39,6 +40,8 @@ def test_port_file_imports_no_jax_or_repro(path):
 
 def test_importing_the_launcher_loads_no_jax_or_repro():
     code = ("import sys, repro_torch.launch.serve, repro_torch.models.weights\n"
+            "import repro_torch.launch.train, repro_torch.launch.steps\n"
+            "import repro_torch.checkpoint, repro_torch.optim, repro_torch.data\n"
             "import repro_torch.core, repro_torch.state\n"
             "import repro_torch.kernels.state_push\n"
             "import repro_torch.analysis.sanitizer, repro_torch.telemetry\n"
