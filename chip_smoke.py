@@ -142,7 +142,20 @@ Phases, each fatal on failure:
    the step time at 989 TFLOP/s), peak memory, the forward, backward
    and update by CUDA events, the profiled busy share; K5 timed at the
    training forward beside SDPA's forward, and the plain flash backward
-   beside SDPA's backward.
+   beside SDPA's backward;
+15. training, mamba2-130m and then zamba2-1.2b at full width, as phase
+   14: ``SSDScanFn`` (K8's forward, the plain chunked scan's backward) at
+   one Mamba layer's training shape, y and the final state against
+   ``ssd_chunked`` and every operand's gradient from one backward against
+   autograd through it, at the models' decays (3e-2); zamba2's shared
+   block also gets phase 14's K5 parity at H 32; the same holds, kernel
+   path against plain path (zamba2 in two microbatches of 2 rows on both
+   paths: the plain attention's scores at 32 heads and 4 rows do not fit
+   beside its backward); the main path for 8 steps with K8 exactly twice
+   per Mamba layer and step (48 and 76) and, for zamba2, K5 twice per
+   shared-block application (14); the same reports; K8 timed at the
+   training shape, the plain SSD backward's time per layer, and zamba2's
+   K5 at its training forward beside SDPA.
 
 Phase 2 also holds K8 against its plain version (and the sequential
 oracle) at both models' prefill shapes, in f32 at the reference's 1e-4
@@ -178,7 +191,7 @@ K6 at the three served decode shapes beside SDPA (on one cache, and over
 call launches, and stops; ``python3 chip_smoke.py ssd`` holds K8 at every
 phase-2 case, times it at both SSM prefill shapes with the time of each of
 its kernels, and stops.  ``python3 chip_smoke.py train`` builds, holds the attention kernels,
-runs phase 14 and stops.  ``python3 chip_smoke.py profile`` serves each of
+runs phases 14 and 15 and stops.  ``python3 chip_smoke.py profile`` serves each of
 the four models and prints the device time of one prefill and of one
 decode step (profiler, two runs each) and the wall of each, of the eager
 loop and, where the launcher has step graphs, of their replays, and
@@ -188,7 +201,8 @@ copy of this script in an earlier checkout (``git archive`` of it
 unpacked under ``build/``) measures that checkout's kernels the same way:
 to compare two trees, run the script from each in turns in one call.
 The qwen phases run first; their model is freed before the 32.8 GB MoE
-model is drawn on the card, and that before the SSM models.
+model is drawn on the card, and that before the SSM models; each training
+phase frees its model before the next.
 """
 from __future__ import annotations
 
@@ -474,6 +488,7 @@ def check_close(name: str, got, want, tol: float) -> float:
     if got.shape != want.shape or got.dtype != want.dtype:
         raise AssertionError(f"{name}: got {tuple(got.shape)} {got.dtype}, "
                              f"want {tuple(want.shape)} {want.dtype}")
+    got, want = got.detach(), want.detach()
     if not bool(torch.isfinite(got.float()).all()):
         raise AssertionError(f"{name}: non-finite output")
     d = (got.float() - want.float()).abs()
@@ -2318,14 +2333,10 @@ def phase_timing_ssd(res, launches: int, errs, Bt: int = BATCH,
     Q = min(cfg.ssm_chunk, _ssd_chunk(S))
     x, dt, A, B, C, D, _ = _ssd_inputs(g, Bt, S, H, P, G, N,
                                        torch.bfloat16, "model", False)
-    nc = -(-S // Q)
     nbytes = (2 * x.numel() + 4 * dt.numel() + 2 * (B.numel() + C.numel())
               + 8 * H + 4 * Bt * H * P * N             # A, D, initial state
               + 2 * x.numel() + 4 * Bt * H * P * N)     # y, final state
-    pairs = Q * (Q + 1) // 2
-    flops_cb = Bt * G * nc * 2 * pairs * N
-    flops_intra = Bt * H * nc * 2 * pairs * P         # (C·Bᵀ ⊙ L)·(dt·x)
-    flops_state = Bt * H * nc * 4 * Q * N * P         # C·stateᵀ, the update
+    flops_cb, flops_intra, flops_state = _ssd_flops(Bt, S, H, P, G, N, Q)
     bf16 = B.dtype == torch.bfloat16
     cb_rate = BF16_FLOP_PER_S if bf16 else FP32_FLOP_PER_S
     products = 3 * flops_intra + (2 if bf16 else 3) * flops_state
@@ -2340,7 +2351,7 @@ def phase_timing_ssd(res, launches: int, errs, Bt: int = BATCH,
                                      backend="torch"), iters=5),
                None, nbytes, [(flops_cb, cb_rate),
                               (products, TF32_FLOP_PER_S)])
-    log(f"timing, K8 at {name}: {cfg.name}'s prefill (Bt {Bt} S {S} H {H} "
+    log(f"timing, K8 at {name}: one {cfg.name} layer's call (Bt {Bt} S {S} H {H} "
         f"P {P} N {N} Q {Q}; C·Bᵀ {flops_cb / 1e9:.3f} GFLOP, f32 "
         f"{(flops_intra + flops_state) / 1e9:.2f} GFLOP ({products / 1e9:.2f}"
         f" as TF32 products), {nbytes / 1e6:.1f} MB; blocks (C·Bᵀ, state, "
@@ -2488,20 +2499,27 @@ def phase_ssd_ab() -> None:
 
 
 # ---------------------------------------------------------------------------
-# Training: qwen1.5-0.5b at full width, train_4k's sequence, batch 4
+# Training: qwen1.5-0.5b, mamba2-130m and zamba2-1.2b at full width,
+# train_4k's sequence, batch 4
 # ---------------------------------------------------------------------------
 
 TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS, TRAIN_WARM = 4096, 4, 8, 2
+TRAIN_ARCHS = (ARCH,) + SSM_ARCHS
 TRAIN_LOSS_TOL = {"float32": 1e-4, "bfloat16": 3e-2}   # abs + rel
 TRAIN_GRAD_RL2 = 1e-3        # each f32 gradient leaf, relative L2
 
 
-def _train_qkv(g, requires_grad=False):
-    """One qwen1.5-0.5b layer's attention operands at the training shape
+def _train_row(kernel: str, cfg) -> str:
+    """A training row's name: ``flash_attention[train]`` for qwen1.5-0.5b
+    (the first training row), else ``<kernel>[train <arch>]``."""
+    return f"{kernel}[train]" if cfg.name == ARCH else \
+        f"{kernel}[train {cfg.name}]"
+
+
+def _train_qkv(g, cfg):
+    """One attention layer's operands of ``cfg`` at the training shape
     (bf16), and an upstream gradient."""
     import torch
-    from repro_torch.configs import get_config
-    cfg = get_config(ARCH)
     H, K, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     shapes = [(TRAIN_BATCH, TRAIN_SEQ, H, D), (TRAIN_BATCH, TRAIN_SEQ, K, D),
               (TRAIN_BATCH, TRAIN_SEQ, K, D), (TRAIN_BATCH, TRAIN_SEQ, H, D)]
@@ -2509,22 +2527,23 @@ def _train_qkv(g, requires_grad=False):
             for s in shapes]
 
 
-def phase_train_parity() -> dict:
+def phase_train_parity(cfg) -> dict:
     """K5's softmax statistics and ``FlashAttentionFn``'s gradients at one
-    layer's training shape (B 4, S 4096, H 16, D 64, bf16, causal) against
-    the plain version's (``attention_ref`` with its statistics, and
-    autograd through it): the output and gradients at the bf16 kernel
-    tolerance, the statistics (f32 sums of f32 products of the same bf16
-    operands) at the f32 one."""
+    attention layer's training shape of ``cfg`` (B 4, S 4096, bf16,
+    causal) against the plain version's (``attention_ref`` with its
+    statistics, and autograd through it): the output and gradients at the
+    bf16 kernel tolerance, the statistics (f32 sums of f32 products of the
+    same bf16 operands) at the f32 one."""
     import torch
     from repro_torch.kernels.flash_attention import (attention_ref,
                                                      flash_attention)
     from repro_torch.kernels.flash_attention import ops as flash_ops
     g = torch.Generator(device="cuda").manual_seed(SEED + 20)
-    q, k, v, do = _train_qkv(g)
+    q, k, v, do = _train_qkv(g, cfg)
     D = q.shape[-1]
-    log(f"train parity: K5 with statistics and FlashAttentionFn at B "
-        f"{TRAIN_BATCH} S {TRAIN_SEQ} H {q.shape[2]} D {D}, bf16, causal")
+    log(f"train parity: K5 with statistics and FlashAttentionFn at "
+        f"{cfg.name}'s B {TRAIN_BATCH} S {TRAIN_SEQ} H {q.shape[2]} D {D}, "
+        f"bf16, causal")
     out, lse = flash_ops._flash_cuda(q, k, v, True, D ** -0.5, 0, stats=True)
     torch.cuda.synchronize()
     want, want_lse = attention_ref(q, k, v, causal=True, return_stats=True)
@@ -2544,7 +2563,64 @@ def phase_train_parity() -> dict:
                     TOL["bfloat16"])
     del xs, ys
     torch.cuda.empty_cache()
-    return {"flash_attention[train]": err}
+    return {_train_row("flash_attention", cfg): err}
+
+
+def _ssd_train_operands(g, cfg):
+    """One Mamba layer's SSD operands of ``cfg`` at the training shape:
+    bf16 x, B, C and f32 dt, A, D with the models' decays, as the layer
+    hands them to ``ssd`` (no initial state)."""
+    import torch
+    H, P, G, N = cfg.ssm_nheads, cfg.ssm_headdim, cfg.ssm_ngroups, \
+        cfg.ssm_state
+    return _ssd_inputs(g, TRAIN_BATCH, TRAIN_SEQ, H, P, G, N, torch.bfloat16,
+                       "model", False)[:6]
+
+
+def phase_train_parity_ssd(cfg) -> dict:
+    """``SSDScanFn`` at one Mamba layer's training shape of ``cfg``: y and
+    the final state of its forward (one K8 launch) against
+    ``ssd_chunked``, then dx, ddt, dA, dB, dC and dD from one backward of
+    both outputs against autograd through ``ssd_chunked`` on the same
+    operands and cotangents, at the tolerance in force at the models'
+    decays (3e-2: the plain version's f32 sums are ~4e-4 off the exact
+    scan there, K8's f64 sums are not)."""
+    import torch
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssd_scan import ssd, ssd_chunked
+    g = torch.Generator(device="cuda").manual_seed(SEED + 22)
+    ops = _ssd_train_operands(g, cfg)
+    x = ops[0]
+    Bt, S, H, P = x.shape
+    N = ops[3].shape[3]
+    Q = min(cfg.ssm_chunk, _ssd_chunk(S))
+    tol = SSD_TOL["bfloat16"]
+    gy = torch.randn(x.shape, generator=g, device="cuda").to(x.dtype)
+    gf = torch.randn((Bt, H, P, N), generator=g, device="cuda")
+    log(f"train parity: SSDScanFn at {cfg.name}'s Bt {Bt} S {S} H {H} P {P} "
+        f"N {N} Q {Q}, bf16, the models' decays")
+    xs = [t.clone().requires_grad_() for t in ops]
+    n0 = ssd_ops.LAUNCHES.value
+    y, final = ssd(*xs, chunk=cfg.ssm_chunk)
+    torch.autograd.backward((y, final), (gy, gf))
+    torch.cuda.synchronize()
+    if ssd_ops.LAUNCHES.value != n0 + 1:
+        raise AssertionError("SSDScanFn did not launch K8 once")
+    ys = [t.clone().requires_grad_() for t in ops]
+    yc, fc = ssd_chunked(*ys, torch.zeros_like(gf), Q)
+    name = _train_row("ssd_scan", cfg)
+    err = check_close(f"SSDScanFn y ({cfg.name} train shape)", y, yc, tol)
+    check_close(f"SSDScanFn final state ({cfg.name} train shape)", final,
+                fc, tol)
+    torch.autograd.backward((yc, fc), (gy, gf))
+    for gname, a, b in zip(("dx", "ddt", "dA", "dB", "dC", "dD"), xs, ys):
+        if a.grad.dtype != a.dtype:
+            raise AssertionError(f"SSDScanFn {gname}: {a.grad.dtype}")
+        check_close(f"SSDScanFn {gname} ({cfg.name} train shape)", a.grad,
+                    b.grad, tol)
+    del xs, ys, y, yc
+    torch.cuda.empty_cache()
+    return {name: err}
 
 
 def _train_batch(cfg, step: int) -> dict:
@@ -2556,28 +2632,39 @@ def _train_batch(cfg, step: int) -> dict:
                      "cuda")
 
 
-def _loss_and_grads(model, params, batch):
-    import torch
-    loss, _ = model.loss(params, batch)
-    grads = torch.autograd.grad(loss, list(params.parameters()))
-    return loss.detach(), grads
+def _loss_and_grads(model, params, batch, n_micro: int = 1):
+    """The loss and every gradient leaf, in parameter order, of one step
+    over ``batch`` in ``n_micro`` microbatches (``accumulate_grads``, as
+    ``make_train_step`` takes them)."""
+    from repro_torch.optim.grad_accum import accumulate_grads
+    grads, loss, _ = accumulate_grads(model.loss, params, batch, n_micro)
+    return loss.detach(), list(grads.values())
 
 
-def phase_train_holds() -> None:
-    """One training step of qwen1.5-0.5b at full width (the example's
-    execution config: remat full, loss chunks of 128) on the kernel path
-    and on the plain path (``backend="torch"``), on the same weights and
-    batch: with the weights widened to f32 the losses within 1e-4 and
+def _hold_microbatches(cfg) -> int:
+    """Microbatches of the kernel-vs-plain hold: the plain path's
+    attention makes (B, H, S, S) f32 scores and keeps three of them for
+    its backward, 4.3 GB each at qwen1.5-0.5b's 16 heads and 4 rows;
+    zamba2-1.2b's 32 heads take two microbatches of 2 rows on both paths
+    (at 4 rows the plain path wants more than the card's 80 GB)."""
+    return max(1, cfg.n_heads * TRAIN_BATCH // 64)
+
+
+def phase_train_holds(cfg) -> None:
+    """One training step of ``cfg`` at full width (the example's
+    execution config: remat full, loss chunks of 128; the microbatches of
+    ``_hold_microbatches``) on the kernel path and on the plain path
+    (``backend="torch"``), on the same weights and batch: with the
+    weights widened to f32 the losses within 1e-4 and
     every gradient leaf within 1e-3 relative L2; in bf16 the losses within
     3e-2 and each leaf's relative L2 reported."""
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.models import ExecConfig, build_model
     from repro_torch.models.weights import trainable
-    cfg = get_config(ARCH)
     batch = _train_batch(cfg, 0)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     base = build_model(cfg).init(gen)
+    n_micro = _hold_microbatches(cfg)
     for dtype in ("float32", "bfloat16"):
         dcfg = cfg.with_overrides(dtype=dtype, param_dtype=dtype)
         params = trainable(base.to(getattr(torch, dtype)) if dtype ==
@@ -2587,11 +2674,15 @@ def phase_train_holds() -> None:
             model = build_model(dcfg, ExecConfig(
                 backend=backend, loss_chunk=min(TRAIN_SEQ, 128)))
             t0 = time.perf_counter()
-            out[backend] = _loss_and_grads(model, params, batch)
+            out[backend] = _loss_and_grads(model, params, batch, n_micro)
             torch.cuda.synchronize()
-            log(f"  train step {dtype} {backend}: loss "
+            log(f"  train step {cfg.name} {dtype} {backend}: loss "
                 f"{float(out[backend][0]):.6f} in "
-                f"{time.perf_counter() - t0:.2f}s")
+                f"{time.perf_counter() - t0:.2f}s ({n_micro} microbatch"
+                f"{'es' if n_micro > 1 else ''} of "
+                f"{TRAIN_BATCH // n_micro} rows)")
+            gc.collect()
+            torch.cuda.empty_cache()
         (lk, gk), (lp, gp) = out["auto"], out["torch"]
         tol = TRAIN_LOSS_TOL[dtype]
         names = [n for n, _ in params.named_parameters()]
@@ -2600,7 +2691,7 @@ def phase_train_holds() -> None:
                for n, a, b in zip(names, gk, gp)}
         worst = max(rl2, key=rl2.get)
         finite = all(bool(torch.isfinite(a).all()) for a in gk)
-        log(f"train hold {dtype}: kernel path vs plain path, loss "
+        log(f"train hold {cfg.name} {dtype}: kernel path vs plain path, loss "
             f"{float(lk):.6f} vs {float(lp):.6f} (|d| "
             f"{abs(float(lk) - float(lp)):.3e}, tol {tol:g} abs + rel); "
             f"gradient leaves' relative L2: max {rl2[worst]:.3e} ({worst}), "
@@ -2608,10 +2699,11 @@ def phase_train_holds() -> None:
             + (f" (held to {TRAIN_GRAD_RL2:g})" if dtype == "float32"
                else " (reported)"))
         if not finite or abs(float(lk) - float(lp)) > tol + tol * abs(float(lp)):
-            raise AssertionError(f"train step {dtype}: losses {float(lk)} and "
-                                 f"{float(lp)}, or a non-finite gradient")
+            raise AssertionError(f"train step {cfg.name} {dtype}: losses "
+                                 f"{float(lk)} and {float(lp)}, or a "
+                                 f"non-finite gradient")
         if dtype == "float32" and rl2[worst] > TRAIN_GRAD_RL2:
-            raise AssertionError(f"gradient {worst}: relative L2 "
+            raise AssertionError(f"{cfg.name} gradient {worst}: relative L2 "
                                  f"{rl2[worst]:.3e}")
         del out, gk, gp
         if dtype == "float32":
@@ -2625,34 +2717,75 @@ def phase_train_holds() -> None:
     torch.cuda.empty_cache()
 
 
-def _train_flops(cfg, n_params: int) -> float:
+def _ssd_flops(Bt: int, S: int, H: int, P: int, G: int, N: int,
+               Q: int) -> tuple:
+    """The chunked SSD scan's products over the causal half (j <= i) of
+    each chunk: C·Bᵀ once per (batch, group, chunk); (C·Bᵀ ⊙ L)·(dt·x),
+    and the two state terms (C·stateᵀ and the state update), per (batch,
+    head, chunk).  Returns (C·Bᵀ, intra-chunk, state) FLOP."""
+    nc = -(-S // Q)
+    pairs = Q * (Q + 1) // 2
+    return (Bt * G * nc * 2 * pairs * N, Bt * H * nc * 2 * pairs * P,
+            Bt * H * nc * 4 * Q * N * P)
+
+
+def _train_flops(cfg, params) -> float:
     """Model FLOP of one step: 6 N T for the weights (the tied embedding
-    counted once, as the unembedding), plus causal attention's forward
-    (QK^T and PV over S (S + 1) / 2 pairs) and backward (twice the
-    forward); no remat recompute."""
+    counted once, as the unembedding; the hybrid's shared block once per
+    application), plus 3 times the forward of causal attention (QK^T and
+    PV over S (S + 1) / 2 pairs) in each attention layer or shared-block
+    application and of the SSD scan's products (``_ssd_flops``) in each
+    Mamba layer: the backward twice the forward; no remat recompute."""
+    from repro_torch.models.ssm_stack import n_attn_apps
     T = TRAIN_BATCH * TRAIN_SEQ
+    n = sum(p.numel() for p in params.parameters())
+    mamba_layers = cfg.n_layers if cfg.ssm_state else 0
+    attn_layers = cfg.n_layers - mamba_layers
+    if cfg.family == "hybrid":
+        attn_layers = n_attn_apps(cfg)
+        n += (attn_layers - 1) * sum(p.numel() for p in
+                                     params.shared_block.parameters())
     attn_fwd = 4 * cfg.head_dim * cfg.n_heads * TRAIN_BATCH * \
         TRAIN_SEQ * (TRAIN_SEQ + 1) // 2
-    return 6 * n_params * T + 3 * attn_fwd * cfg.n_layers
+    ssd_fwd = sum(_ssd_flops(
+        TRAIN_BATCH, TRAIN_SEQ, cfg.ssm_nheads, cfg.ssm_headdim,
+        cfg.ssm_ngroups, cfg.ssm_state,
+        min(cfg.ssm_chunk, _ssd_chunk(TRAIN_SEQ))) if mamba_layers else (0,))
+    return 6 * n * T + 3 * (attn_fwd * attn_layers + ssd_fwd * mamba_layers)
 
 
-def phase_train(smi: str) -> tuple:
+def _train_launches(cfg) -> dict:
+    """Each kernel's launches in the training run: K5 and K8 twice per
+    attention layer (or shared-block application) and Mamba layer and
+    step, the forward and the remat recompute; nothing else."""
+    from repro_torch.models.ssm_stack import n_attn_apps
+    want = {k: 0 for k in launch_counters()}
+    attn = n_attn_apps(cfg) if cfg.family == "hybrid" else \
+        (0 if cfg.ssm_state else cfg.n_layers)
+    want["flash_attention"] = 2 * attn * TRAIN_STEPS
+    want["ssd_scan"] = 2 * (cfg.n_layers if cfg.ssm_state else 0) * TRAIN_STEPS
+    return want
+
+
+def phase_train(smi: str, cfg) -> tuple:
     """The training main path: ``examples/train_lm_torch.py`` at full width
-    (qwen1.5-0.5b, random weights from the seed, train_4k's sequence of
-    4,096 at batch 4, SGD with warmup_cosine(0.05), remat full), 8 steps,
-    every counter zeroed just before and read just after: K5 launches
-    exactly twice per layer and step (forward and remat recompute), no
-    other kernel launches.  The loss must be finite at every step and
-    every weight matrix (the embedding, attention and MLP leaves) must
-    have moved by the last step.  A leaf whose every element's f32 step
-    stays under half a bf16 ulp keeps its value, as in the reference
-    (the update is cast to bf16 with no f32 master copy): the unit norm
-    scales do at lr 0.05.  So one more step holds the update itself:
-    every leaf bitwise equal to the reference's rule, cast(p32 - lr g32),
-    computed leaf by leaf, and each unmoved leaf's largest step is
-    printed against half an ulp.  Then two steps with CUDA events around
-    the forward, backward and update, and one under the profiler for the
-    device's busy share.  Returns (the config, K5's launches)."""
+    (``cfg``'s architecture, random weights from the seed, train_4k's
+    sequence of 4,096 at batch 4, SGD with warmup_cosine(0.05), remat
+    full), 8 steps, every counter zeroed just before and read just after:
+    K5 (qwen1.5-0.5b's layers, zamba2-1.2b's shared-block applications)
+    and K8 (each Mamba layer) launch exactly twice per layer and step
+    (forward and remat recompute), no other kernel launches.  The loss
+    must be finite at every step and every weight matrix (the embedding,
+    attention, MLP and Mamba leaves of two or more axes) must have moved
+    by the last step.  A leaf whose every element's f32 step stays under
+    half a bf16 ulp keeps its value, as in the reference (the update is
+    cast to bf16 with no f32 master copy): the unit norm scales do at lr
+    0.05.  So one more step holds the update itself: every leaf bitwise
+    equal to the reference's rule, cast(p32 - lr g32), computed leaf by
+    leaf, and each unmoved leaf's largest step is printed against half an
+    ulp.  Then two steps with CUDA events around the forward, backward and
+    update, and one under the profiler for the device's busy share.
+    Returns (the config, the run's launches)."""
     import shutil
     import tempfile
     import torch
@@ -2661,7 +2794,8 @@ def phase_train(smi: str) -> tuple:
     from repro_torch.optim import SGD, warmup_cosine
     sys.path.insert(0, str(ROOT / "examples"))
     import train_lm_torch as twin
-    log(f"train: {ARCH} full width via examples/train_lm_torch.py, bf16, "
+    arch = cfg.name
+    log(f"train: {arch} full width via examples/train_lm_torch.py, bf16, "
         f"batch {TRAIN_BATCH} x seq {TRAIN_SEQ}, {TRAIN_STEPS} steps")
     ckpt_dir = tempfile.mkdtemp(prefix="train_lm_torch_")
     gc.collect()
@@ -2670,7 +2804,7 @@ def phase_train(smi: str) -> tuple:
     base_mem = torch.cuda.memory_allocated()
     reset_launches()
     try:
-        res = twin.main(["--arch", ARCH, "--seq", str(TRAIN_SEQ), "--batch",
+        res = twin.main(["--arch", arch, "--seq", str(TRAIN_SEQ), "--batch",
                          str(TRAIN_BATCH), "--steps", str(TRAIN_STEPS),
                          "--lr", "0.05", "--ckpt-every", "0", "--ckpt-dir",
                          ckpt_dir, "--device", "cuda"])
@@ -2679,11 +2813,10 @@ def phase_train(smi: str) -> tuple:
     launches = read_launches()
     peak_gb = (torch.cuda.max_memory_allocated() - base_mem) / 1e9
     cfg, params, state = res["cfg"], res["params"], res["state"]
-    want = {k: 0 for k in launches}
-    want["flash_attention"] = 2 * cfg.n_layers * TRAIN_STEPS
-    log(f"  launches {launches} (expected {want}: K5 forward and remat "
-        f"recompute in each of {cfg.n_layers} layers and {TRAIN_STEPS} "
-        f"steps)")
+    want = _train_launches(cfg)
+    log(f"  launches {launches} (expected {want}: K5 and K8 forward and "
+        f"remat recompute in each of {cfg.n_layers} layers and "
+        f"{TRAIN_STEPS} steps)")
     if launches != want:
         raise AssertionError(f"train launches {launches}, expected {want}")
     losses = [float(x) for x in res["losses"]]
@@ -2703,13 +2836,12 @@ def phase_train(smi: str) -> tuple:
     log(f"  {n_leaves - len(same)} of {n_leaves} parameter leaves changed, "
         f"every weight matrix among them; unchanged: {len(same)} "
         f"({sorted({n.rsplit('.', 2)[-2] + '.' + n.rsplit('.', 1)[-1] for n in same})})")
-    n_params = sum(p.numel() for p in params.parameters())
-    flops = _train_flops(cfg, n_params)
+    flops = _train_flops(cfg, params)
     step_s = res["step_s"][TRAIN_WARM:]
     ms = [s * 1e3 for s in step_s]
     mean_s = sum(step_s) / len(step_s)
     tok = TRAIN_BATCH * TRAIN_SEQ
-    log(f"train {ARCH}: step ms (host clock, batch made and copied, ending "
+    log(f"train {arch}: step ms (host clock, batch made and copied, ending "
         f"in a sync; steps {TRAIN_WARM}-{TRAIN_STEPS - 1}) "
         f"{[round(x, 2) for x in ms]}, mean {mean_s * 1e3:.2f}; "
         f"{tok / mean_s:.1f} tokens/s; train_mfu {flops / mean_s / BF16_FLOP_PER_S:.4f} "
@@ -2769,7 +2901,7 @@ def phase_train(smi: str) -> tuple:
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     busy_ms, n_kernels, events = _busy(prof)
-    log(f"train {ARCH} one step by CUDA events: forward {fwd:.2f}ms, "
+    log(f"train {arch} one step by CUDA events: forward {fwd:.2f}ms, "
         f"backward (remat recompute included) {bwd:.2f}ms, SGD update "
         f"{upd:.2f}ms; profiled step: device busy {busy_ms:.1f}ms in "
         f"{n_kernels} kernels, {100 * busy_ms / 1e3 / mean_s:.1f}% of the "
@@ -2782,11 +2914,11 @@ def phase_train(smi: str) -> tuple:
     del model, params, state, res
     gc.collect()
     torch.cuda.empty_cache()
-    return cfg, launches["flash_attention"]
+    return cfg, launches
 
 
 def phase_timing_train(cfg, launches: int, errs, smi: str) -> list:
-    """K5 at the training forward (B 4, S 4096, H 16, D 64, bf16, causal,
+    """K5 at ``cfg``'s training forward (B 4, S 4096, bf16, causal,
     statistics written) beside SDPA's forward, with the launches of the
     main path's run; then the plain flash backward at that shape beside
     SDPA's backward (logged, not a kernel row)."""
@@ -2795,9 +2927,9 @@ def phase_timing_train(cfg, launches: int, errs, smi: str) -> list:
     from repro_torch.kernels.flash_attention import (attention_ref,
                                                      flash_attention_bwd)
     from repro_torch.kernels.flash_attention import ops as flash_ops
-    name = "flash_attention[train]"
+    name = _train_row("flash_attention", cfg)
     g = torch.Generator(device="cuda").manual_seed(SEED + 21)
-    q, k, v, do = _train_qkv(g)
+    q, k, v, do = _train_qkv(g, cfg)
     Bq, S, H, D = q.shape
     scale = D ** -0.5
     qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
@@ -2814,8 +2946,8 @@ def phase_timing_train(cfg, launches: int, errs, smi: str) -> list:
                {name: launches}, errs, k_ms,
                device_ms(lambda: attention_ref(q, k, v, causal=True), iters=3),
                lib_ms, 2 * 4 * q.numel() + 4 * Bq * H * S, 4 * D * pairs)
-    log(f"timing, K5 at the training forward (B {Bq} S {S} H {H} D {D}, "
-        f"statistics written): {k_ms * 1e3:.1f}us device, bound "
+    log(f"timing, K5 at {cfg.name}'s training forward (B {Bq} S {S} H {H} "
+        f"D {D}, statistics written): {k_ms * 1e3:.1f}us device, bound "
         f"{row['bound_ms'] * 1e3:.2f}us ({row['bound_by']}), plain "
         f"{row['plain_ms'] * 1e3:.1f}us, library {lib_ms * 1e3:.1f}us (SDPA "
         f"forward; kernel and SDPA by the {how}), launches {launches} "
@@ -2830,12 +2962,75 @@ def phase_timing_train(cfg, launches: int, errs, smi: str) -> list:
     b_bytes = 2 * 8 * q.numel() + 4 * Bq * H * S     # q k v out dout dq dk dv, lse
     b_flops = 5 * 2 * D * pairs                       # S again, dV, dP, dQ, dK
     b_bound = max(b_bytes / HBM_BYTES_PER_S, b_flops / BF16_FLOP_PER_S) * 1e3
-    log(f"timing, the plain flash backward at the training shape: "
-        f"{b_ms * 1e3:.1f}us device (once per layer: {b_ms * cfg.n_layers:.1f}"
-        f"ms a step), bound {b_bound * 1e3:.2f}us "
+    calls = launches // TRAIN_STEPS // 2
+    log(f"timing, the plain flash backward at {cfg.name}'s training shape: "
+        f"{b_ms * 1e3:.1f}us device (once per attention layer: "
+        f"{b_ms * calls:.1f}ms a step), bound {b_bound * 1e3:.2f}us "
         f"(operations), library {sb_ms * 1e3:.1f}us (SDPA backward; both by "
         f"the {how}); {smi}")
     return [row]
+
+
+def phase_timing_train_ssd(cfg, launches: int, errs, smi: str) -> list:
+    """K8 at one Mamba layer's training shape of ``cfg`` (Bt 4, S 4096,
+    as ``phase_timing_ssd`` times the prefill), with the launches of the
+    main path's run; then the plain SSD backward, ``SSDScanFn``'s (the
+    chunked scan recomputed from the saved inputs and differentiated by
+    autograd), at that shape (logged, not a kernel row; no library call
+    computes it).  Its bound: the bytes of the operands, y's cotangent
+    and the gradients, or twice the forward's products (each product's
+    gradient is two products of its size) at the TF32 rate, the plain
+    backward's operands being f32, whichever is longer."""
+    import torch
+    from repro_torch.kernels.ssd_scan import ssd
+    name = _train_row("ssd_scan", cfg)
+    rows = phase_timing_ssd({"cfg": cfg}, launches, errs, Bt=TRAIN_BATCH,
+                            S=TRAIN_SEQ, name=name)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 23)
+    xs = [t.requires_grad_() for t in _ssd_train_operands(g, cfg)]
+    y, _ = ssd(*xs, chunk=cfg.ssm_chunk)
+    gy = torch.randn(y.shape, generator=g, device="cuda").to(y.dtype)
+    bwd = lambda: torch.autograd.grad(y, xs, gy, retain_graph=True)
+    b_ms = device_ms(bwd, iters=3, warmup=2)
+    Bt, S, H, P = xs[0].shape
+    G, N = xs[3].shape[2], xs[3].shape[3]
+    Q = min(cfg.ssm_chunk, _ssd_chunk(S))
+    b_flops = 2 * sum(_ssd_flops(Bt, S, H, P, G, N, Q))
+    b_bytes = 2 * sum(t.numel() * t.element_size() for t in xs) + \
+        y.numel() * y.element_size()
+    b_bound = max(b_bytes / HBM_BYTES_PER_S, b_flops / TF32_FLOP_PER_S) * 1e3
+    per_step = launches // TRAIN_STEPS // 2
+    log(f"timing, the plain SSD backward (SSDScanFn's) at {cfg.name}'s "
+        f"training shape (Bt {Bt} S {S} H {H} P {P} N {N} Q {Q}): "
+        f"{b_ms * 1e3:.1f}us device (once per Mamba layer: "
+        f"{b_ms * per_step:.1f}ms a step), bound {b_bound * 1e3:.2f}us "
+        f"({'operations' if b_flops / TF32_FLOP_PER_S >= b_bytes / HBM_BYTES_PER_S else 'bytes'}: "
+        f"{b_flops / 1e9:.2f} GFLOP at the TF32 rate, {b_bytes / 1e6:.1f} MB), "
+        f"library none; {smi}")
+    del xs, y
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_training(arch: str, errs, smi: str) -> list:
+    """The training phase of one architecture: the kernels' training
+    parity at its shapes, the kernel-path holds, the main path's run and
+    its kernels' training rows."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    if cfg.n_heads:
+        errs.update(phase_train_parity(cfg))
+    if cfg.ssm_state:
+        errs.update(phase_train_parity_ssd(cfg))
+    phase_train_holds(cfg)
+    cfg, launches = phase_train(smi, cfg)
+    rows = []
+    if launches["flash_attention"]:
+        rows += phase_timing_train(cfg, launches["flash_attention"], errs,
+                                   smi)
+    if launches["ssd_scan"]:
+        rows += phase_timing_train_ssd(cfg, launches["ssd_scan"], errs, smi)
+    return rows
 
 
 def main(argv) -> int:
@@ -2892,11 +3087,9 @@ def main(argv) -> int:
         phase_timing_fanout_flash(0, errs)
         log(smi)
         return 0
-    if mode == "train":                   # the training path alone
-        errs.update(phase_train_parity())
-        phase_train_holds()
-        cfg, train_launches = phase_train(smi)
-        phase_timing_train(cfg, train_launches, errs, smi)
+    if mode == "train":                   # the training paths alone
+        for arch in TRAIN_ARCHS:
+            phase_training(arch, errs, smi)
         log(smi)
         return 0
     if gmm_only:
@@ -2969,10 +3162,8 @@ def main(argv) -> int:
         del res
         gc.collect()
         torch.cuda.empty_cache()
-    errs.update(phase_train_parity())
-    phase_train_holds()
-    cfg, train_launches = phase_train(smi)
-    rows += phase_timing_train(cfg, train_launches, errs, smi)
+    for arch in TRAIN_ARCHS:
+        rows += phase_training(arch, errs, smi)
     log(f"chip_smoke: {time.perf_counter() - t0:.1f}s")
     print(smi)
     print(json.dumps({"kernels": rows}))

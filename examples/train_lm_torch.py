@@ -6,9 +6,11 @@ Twin of ``examples/train_lm.py``, with its flags and output lines, plus
 only when named.  On the card it is the full-width run: ``--arch
 qwen1.5-0.5b --seq 4096 --batch 4`` trains the whole 0.46 B-parameter
 model at train_4k's sequence length, its batch cut from 256 to 4
-(``chip_smoke.py`` runs it so).  The step is eager (one sync per logged
-step); checkpoints are the reference's layout, so either driver resumes
-the other's.
+(``chip_smoke.py`` runs it so, and so ``--arch mamba2-130m`` and
+``--arch zamba2-1.2b``, whose Mamba layers run the SSD scan kernel K8 in
+the forward and the plain chunked scan in the backward).  The step is
+eager (one sync per logged step); checkpoints are the reference's
+layout, so either script resumes the other's.
 
 Run:  PYTHONPATH=src python examples/train_lm_torch.py --smoke --device cpu
       PYTHONPATH=src python examples/train_lm_torch.py --arch qwen1.5-0.5b \\

@@ -13,6 +13,15 @@ decomposition as four kernels on the caller's stream (C·Bᵀ once per
 contribution; the state passed across the chunks; the outputs), with the
 scratch that :func:`plan` sizes from the shapes.  :func:`ssd_step` is
 plain PyTorch on every device, as it is plain jnp in the reference.
+
+Training: on a CUDA tensor in grad mode, when an operand requires grad,
+the call goes through :class:`SSDScanFn`.  Its forward is K8 and saves
+only the inputs; its backward recomputes :func:`ref.ssd_chunked` from
+them under autograd, the counterpart of the reference's gradient, which
+is XLA's autodiff of the chunked ``_ssd_xla`` (the Pallas kernel is
+forward only).  On the CPU, autograd differentiates
+:func:`ref.ssd_chunked` itself.  Nothing falls back: a kernel that fails
+to build or launch raises in training as in serving.
 """
 from __future__ import annotations
 
@@ -23,8 +32,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.common import (DTYPE_CODES, LaunchCounter,
-                                        cdiv, check_operands, dispatch,
-                                        refuse_grad)
+                                        cdiv, check_operands, dispatch)
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked
 
 LAUNCHES = LaunchCounter()  # wrapper calls that launched the kernels
@@ -76,9 +84,40 @@ def ssd(x, dt, A, B, C, D_skip, *, chunk: int = 256, initial_state=None,
                                     device=x.device)
     if dispatch(backend, x) == "torch":
         return ssd_chunked(x, dt, A, B, C, D_skip, initial_state, chunk)
-    refuse_grad("ssd_scan", "SSM and hybrid training", x, dt, A, B, C,
-                D_skip, initial_state)
-    return _ssd_cuda(x, dt, A, B, C, D_skip, initial_state, chunk)
+    operands = (x, dt, A, B, C, D_skip, initial_state)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in operands):
+        return SSDScanFn.apply(*operands, chunk)
+    return _ssd_cuda(*operands, chunk)
+
+
+class SSDScanFn(torch.autograd.Function):
+    """K8's forward, saving its inputs; the backward is autograd through
+    :func:`ref.ssd_chunked` recomputed from them (B's and C's gradients
+    summed over each group's heads by the recompute's own broadcast)."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, D_skip, initial_state, chunk):
+        ctx.set_materialize_grads(False)
+        y, final = _ssd_cuda(x, dt, A, B, C, D_skip, initial_state, chunk)
+        ctx.save_for_backward(x, dt, A, B, C, D_skip, initial_state)
+        ctx.chunk = chunk
+        return y, final
+
+    @staticmethod
+    def backward(ctx, grad_y, grad_final):
+        saved = ctx.saved_tensors
+        want = ctx.needs_input_grad[:len(saved)]
+        leaves = [t.detach().requires_grad_(w) for t, w in zip(saved, want)]
+        with torch.enable_grad():
+            outs = ssd_chunked(*leaves, ctx.chunk)
+        pairs = [(o, g) for o, g in zip(outs, (grad_y, grad_final))
+                 if g is not None and o.requires_grad]
+        if not pairs:
+            return (None,) * (len(saved) + 1)
+        got = iter(torch.autograd.grad(
+            [o for o, _ in pairs], [t for t in leaves if t.requires_grad],
+            [g for _, g in pairs], allow_unused=True))
+        return tuple(next(got) if w else None for w in want) + (None,)
 
 
 def _ssd_cuda(x, dt, A, B, C, D_skip, initial_state, chunk: int):

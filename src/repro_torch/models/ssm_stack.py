@@ -6,7 +6,10 @@ transformer block (its weights tied across all applications, the Zamba2
 parameter-sharing trick) before every ``attn_every`` Mamba2 layers: the
 layers form static groups, each the shared block then its Mamba layers.
 The JAX package stacks the layers and scans each group; here they are an
-``nn.ModuleList`` walked by a Python loop.  Serving state: per layer the
+``nn.ModuleList`` walked by a Python loop.  Training (``forward_train``)
+runs each Mamba layer and each shared-block application under
+``ExecConfig.remat``, as the reference's scan body and shared block do;
+serving's forward never rematerialises.  Serving state: per layer the
 conv tail (L, B, W-1, conv_ch) in the activation dtype and the SSD state
 (L, B, H, P, N) in f32; the hybrid adds one KV cache per shared-block
 application, (A, B, max_len, K, D).  Prefill and decode write every part
@@ -24,8 +27,9 @@ from repro_torch.models import layers as L
 from repro_torch.models.execution import ExecConfig
 from repro_torch.models.ssm import (Mamba2, mamba_apply_full,
                                     mamba_init_state, mamba_step)
-from repro_torch.models.transformer import (DenseBlock, block_decode,
-                                            block_full, block_prefill)
+from repro_torch.models.transformer import (DenseBlock, _maybe_remat,
+                                            block_decode, block_full,
+                                            block_prefill)
 
 
 def n_attn_apps(cfg: ModelConfig) -> int:
@@ -101,27 +105,36 @@ def _mamba_block_full(lp: MambaLayer, cfg, ec, h, return_state=False):
 
 def forward_hidden(params: SSMStack, cfg: ModelConfig, ec: ExecConfig,
                    tokens, image_embeds=None, train: bool = True):
-    """Returns (h (B, S, d) post-final-norm, aux_loss 0).  ``train`` is kept
-    for the signature; it selected remat and sharding, both dropped."""
+    """Returns (h (B, S, d) post-final-norm, aux_loss 0).  With ``train``
+    each Mamba layer and each shared-block application runs under
+    ``ec.remat``, as the reference's scan body and shared block do."""
     h = L.embed_apply(params, cfg, tokens)
     positions = _positions(cfg, h.shape[1], h.device)
     shared = _shared(params)
+
+    def mamba(lp, h):
+        return _mamba_block_full(lp, cfg, ec, h)
+
+    def attn(h):
+        return block_full(shared, cfg, ec, h, positions)[0]
+
+    if train:
+        mamba, attn = _maybe_remat(mamba, ec), _maybe_remat(attn, ec)
     for (a, b) in _groups(cfg):
         if shared is not None:
-            h = block_full(shared, cfg, ec, h, positions)[0]
+            h = attn(h)
         for lp in params.layers[a:b]:
-            h = _mamba_block_full(lp, cfg, ec, h)
+            h = mamba(lp, h)
     return (L.norm_apply(params.final_norm, cfg, h),
             torch.zeros((), dtype=torch.float32, device=h.device))
 
 
 def forward_train(params: SSMStack, cfg: ModelConfig, ec: ExecConfig, batch):
-    """Not ported yet: the SSD scan (K8) has no backward on the card, and a
-    plain path standing in for it there would hide that."""
-    raise NotImplementedError(
-        f"{cfg.name}: training of the {cfg.family} family is not ported yet "
-        f"(ROADMAP 'SSM and hybrid training': K8 needs a backward on the "
-        f"card)")
+    """batch: tokens/targets/mask tensors.  Returns (loss + aux, metrics)."""
+    h, aux = forward_hidden(params, cfg, ec, batch["tokens"], train=True)
+    loss = L.chunked_loss(params, cfg, h, batch["targets"], batch["mask"],
+                          ec.loss_chunk)
+    return loss + aux, {"loss": loss, "aux_loss": aux}
 
 
 def forward_logits(params: SSMStack, cfg: ModelConfig, ec: ExecConfig, tokens,

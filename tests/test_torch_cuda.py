@@ -13,7 +13,9 @@ bf16 kernels (the regime threshold, TMA boxes, zero tiles, ragged f); K8
 (the SSD scan) at 1e-4 in f32 on the reference's test distributions (the
 reference's ssd tolerance) and 3e-2 with bf16 operands or the models' own
 decays, at mamba2-130m's and zamba2-1.2b's prefill shapes and at the
-ragged, short, long and grouped cases.  This file imports no JAX: the
+ragged, short, long and grouped cases, and under autograd
+(``SSDScanFn``: K8's forward, the plain chunked scan's backward) at the
+same tolerances.  This file imports no JAX: the
 machine with the card has none.  Run it there with
 ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``.
 """
@@ -1138,7 +1140,7 @@ def test_flash_attention_fn_gradients_on_card(card, case, dtype):
 
 
 @pytest.mark.cuda
-def test_k7_and_k8_under_grad_raise(card):
+def test_k7_under_grad_raises(card):
     x = torch.zeros(64, 64, device=card, requires_grad=True)
     w = torch.zeros(2, 64, 64, device=card)
     gs = torch.tensor([32, 32], dtype=torch.int32, device=card)
@@ -1146,23 +1148,71 @@ def test_k7_and_k8_under_grad_raise(card):
         gmm(x, w, gs)
     with torch.no_grad():
         gmm(x, w, gs)                          # no gradient asked: runs
-    Bt, S, H, P, G, N = 1, 32, 2, 16, 1, 16
-    xs = torch.zeros(Bt, S, H, P, device=card, requires_grad=True)
-    dt = torch.full((Bt, S, H), 0.1, device=card)
-    A, D = -torch.ones(H, device=card), torch.ones(H, device=card)
-    Bm = torch.zeros(Bt, S, G, N, device=card)
-    with pytest.raises(NotImplementedError, match="no backward"):
-        ssd(xs, dt, A, Bm, Bm, D)
-    with torch.no_grad():
-        ssd(xs, dt, A, Bm, Bm, D)
 
 
-def _train_setup(card, dtype, remat="full"):
+SSD_GRAD_CASES = ["mamba2_prefill", "zamba2_prefill", "mamba2_model_decays",
+                  "ragged_700_groups_2_model_decays", "groups_2", "chunk_32",
+                  "P8_N8"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", SSD_GRAD_CASES)
+def test_ssd_scan_fn_gradients_on_card(card, case, dtype):
+    """K8 forward under autograd (one launch, through ``SSDScanFn``), the
+    plain backward: y and the final state against ``ssd_chunked``, and
+    every operand's gradient from one ``backward`` of both outputs against
+    autograd through ``ssd_chunked`` on the same CUDA tensors."""
+    args = _ssd_inputs(card, case, dtype)
+    S = args[0].shape[1]
+    chunk = min(256, max(16, 1 << (S - 1).bit_length()))
+    rng = np.random.default_rng(3)
+    gy = _randn(rng, tuple(args[0].shape), dtype, card)
+    gf = _randn(rng, tuple(args[-1].shape), torch.float32, card)
+    xs = [t.clone().requires_grad_() for t in args]
+    n = ssd_ops.LAUNCHES.value
+    y, final = ssd(*xs[:-1], initial_state=xs[-1])
+    assert "SSDScanFn" in type(y.grad_fn).__name__
+    torch.autograd.backward((y, final), (gy, gf))
+    torch.cuda.synchronize()
+    assert ssd_ops.LAUNCHES.value == n + 1
+    ys = [t.clone().requires_grad_() for t in args]
+    yc, fc = ssd_chunked(*ys, chunk)
+    model_decays = SSD_CASES[case][-1] == "model"
+    tol = 3e-2 if model_decays or dtype == torch.bfloat16 else 1e-4
+    ftol = 3e-2 if model_decays else 1e-4
+    torch.testing.assert_close(y.float(), yc.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(final, fc, atol=ftol, rtol=ftol)
+    torch.autograd.backward((yc, fc), (gy, gf))
+    for name, a, b in zip("x dt A B C D initial_state".split(), xs, ys):
+        assert a.grad.dtype == a.dtype, name
+        torch.testing.assert_close(a.grad.float(), b.grad.float(), atol=tol,
+                                   rtol=tol, msg=name)
+
+
+@pytest.mark.cuda
+def test_k8_launch_failure_in_training_raises(card, monkeypatch):
+    """A K8 launch that fails under autograd raises; the plain scan does
+    not run in its place."""
+    args = _ssd_inputs(card, "chunk_32", torch.float32)
+    xs = [t.clone().requires_grad_() for t in args]
+    plain = []
+    ssd_ops._build.load("ssd_scan")           # built before the fault
+    monkeypatch.setattr(ssd_ops._build, "function", lambda *a: lambda *b: 700)
+    monkeypatch.setattr(ssd_ops, "ssd_chunked",
+                        lambda *a: plain.append(1) or ssd_chunked(*a))
+    n = ssd_ops.LAUNCHES.value
+    with pytest.raises(RuntimeError, match="CUDA error 700 at launch"):
+        ssd(*xs[:-1], initial_state=xs[-1])
+    assert ssd_ops.LAUNCHES.value == n and plain == []
+
+
+def _train_setup(card, dtype, arch="qwen1.5-0.5b"):
     from repro_torch.configs import smoke_shape
     from repro_torch.data import PipelineConfig, make_batch
     from repro_torch.models.weights import trainable
-    cfg = smoke_config("qwen1.5-0.5b").with_overrides(dtype=dtype,
-                                                      param_dtype=dtype)
+    cfg = smoke_config(arch).with_overrides(dtype=dtype, param_dtype=dtype)
     params = trainable(build_model(cfg).init(
         torch.Generator(device=card).manual_seed(0), card))
     batch = {k: torch.from_numpy(v).to(card) for k, v in make_batch(
@@ -1175,11 +1225,25 @@ def _train_setup(card, dtype, remat="full"):
 def test_smoke_train_step_kernel_path_matches_plain_path(card, dtype):
     """One ``make_train_step`` step (SGD) from the same weights: the loss
     and the updated parameters, kernel path against ``backend="torch"``."""
+    _train_step_kernel_path_matches_plain_path(card, dtype, "qwen1.5-0.5b")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ["mamba2-130m", "zamba2-1.2b"])
+def test_ssm_smoke_train_step_kernel_path_matches_plain_path(card, arch,
+                                                             dtype):
+    """As above for the SSM and hybrid smoke models: K8 through
+    ``SSDScanFn`` (and K5 in the hybrid's shared block)."""
+    _train_step_kernel_path_matches_plain_path(card, dtype, arch)
+
+
+def _train_step_kernel_path_matches_plain_path(card, dtype, arch):
     import copy
     from repro_torch.configs import smoke_shape
     from repro_torch.launch.steps import make_train_step
     from repro_torch.optim import SGD
-    cfg, params, batch = _train_setup(card, dtype)
+    cfg, params, batch = _train_setup(card, dtype, arch)
     tol = 1e-4 if dtype == "float32" else 5e-2
     out = {}
     for backend in ("auto", "torch"):
@@ -1207,6 +1271,24 @@ def test_k5_launches_per_train_step(card, remat, per_layer):
     torch.autograd.grad(loss, list(params.parameters()))
     torch.cuda.synchronize()
     assert flash_ops.LAUNCHES.value - n == per_layer * cfg.n_layers
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("remat,per_layer", [("none", 1), ("full", 2),
+                                             ("dots", 2)])
+@pytest.mark.parametrize("arch", ["mamba2-130m", "zamba2-1.2b"])
+def test_k8_launches_per_train_step(card, arch, remat, per_layer):
+    """K8 once per Mamba layer in the forward, once more in the remat
+    recompute; the hybrid's K5 the same per shared-block application."""
+    from repro_torch.models.ssm_stack import n_attn_apps
+    cfg, params, batch = _train_setup(card, "bfloat16", arch)
+    model = build_model(cfg, ExecConfig(remat=remat, loss_chunk=16))
+    n8, n5 = ssd_ops.LAUNCHES.value, flash_ops.LAUNCHES.value
+    loss, _ = model.loss(params, batch)
+    torch.autograd.grad(loss, list(params.parameters()))
+    torch.cuda.synchronize()
+    assert ssd_ops.LAUNCHES.value - n8 == per_layer * cfg.n_layers
+    assert flash_ops.LAUNCHES.value - n5 == per_layer * n_attn_apps(cfg)
 
 
 @pytest.mark.cuda

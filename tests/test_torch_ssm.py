@@ -14,8 +14,12 @@ Tolerances:
   token ids; 5e-2 in bf16 (the tolerance of ``test_arch_smoke``),
   teacher-forced with the JAX tokens, with the argmax held too.
 
-The CUDA kernel K8 is held against the plain version on the card by
-``test_torch_cuda.py``.
+The SSD scan's gradients (autograd through the plain chunked scan, the
+backward of ``SSDScanFn`` on the card) against ``jax.vjp`` of the
+reference's xla path at 1e-4 in f32; ``SSDScanFn`` itself on CPU tensors
+with the kernel call replaced by the plain version, its gradients equal
+to autograd's through the plain version.  The CUDA kernel K8 is held
+against the plain version on the card by ``test_torch_cuda.py``.
 """
 import dataclasses
 import re
@@ -36,7 +40,8 @@ from repro.models import ExecConfig as JaxExecConfig
 from repro.models import build_model as jax_build_model
 from repro.models import ssm as jax_ssm
 from repro_torch.configs import get_config, smoke_config
-from repro_torch.kernels.ssd_scan import ssd, ssd_chunked, ssd_ref, ssd_step
+from repro_torch.kernels.ssd_scan import (SSDScanFn, ssd, ssd_chunked,
+                                          ssd_ref, ssd_step)
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.launch import serve
 from repro_torch.models import ExecConfig, build_model
@@ -97,6 +102,121 @@ def test_ssd_matches_jax(case, port, against):
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=SSD_TOL,
                                    rtol=SSD_TOL)
+
+
+COTANGENTS = ("y", "final", "both")
+
+
+def _cotangents(args, which, seed=1):
+    """Upstream gradients of y and of the final state, None where absent."""
+    rng = np.random.default_rng(seed)
+    gy = rng.normal(size=args[0].shape).astype(np.float32)
+    gf = rng.normal(size=args[-1].shape).astype(np.float32)
+    return (gy if which != "final" else None,
+            gf if which != "y" else None)
+
+
+def _torch_grads(fn, args, cots):
+    """Gradients of every operand of ``fn(x, dt, A, B, C, D, init)`` under
+    the given cotangents, by autograd (zeros for an operand the used
+    outputs do not depend on: C and D of the final state)."""
+    ts = [torch.from_numpy(a).requires_grad_() for a in args]
+    outs = fn(*ts)
+    pairs = [(o, torch.from_numpy(g)) for o, g in zip(outs, cots)
+             if g is not None]
+    got = torch.autograd.grad([o for o, _ in pairs], ts,
+                              [g for _, g in pairs], allow_unused=True)
+    return [torch.zeros_like(t) if g is None else g for g, t in zip(got, ts)]
+
+
+@pytest.mark.parametrize("cotangent", COTANGENTS)
+@pytest.mark.parametrize("case", list(SSD_CASES))
+def test_ssd_gradients_match_jax_vjp(case, cotangent):
+    """The plain ``ssd`` under autograd (what ``SSDScanFn``'s backward
+    recomputes) against ``jax.vjp`` of the reference's xla path, for every
+    operand: G < H, a ragged S, a non-zero initial state, and a cotangent
+    on y, on the final state or on both."""
+    args, chunk = _ssd_inputs(case)
+    cots = _cotangents(args, cotangent)
+    jfn = lambda *a: jax_ssd(*a[:-1], chunk=chunk, initial_state=a[-1],
+                             backend="xla")
+    (jy, jf), vjp = jax.vjp(jfn, *(jnp.asarray(a) for a in args))
+    want = vjp(tuple(jnp.asarray(g) if g is not None else jnp.zeros_like(o)
+                     for g, o in zip(cots, (jy, jf))))
+    got = _torch_grads(lambda *t: ssd(*t[:-1], chunk=chunk,
+                                      initial_state=t[-1]), args, cots)
+    for name, g, w in zip("x dt A B C D initial_state".split(), got, want):
+        assert g.shape == w.shape, name
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=SSD_TOL,
+                                   rtol=SSD_TOL, err_msg=name)
+
+
+def _plain_kernel(monkeypatch):
+    """Stand K8's call in for the plain version on CPU tensors, counting
+    calls, so that ``SSDScanFn`` runs here."""
+    calls = []
+
+    def fake(x, dt, A, B, C, D, init, chunk):
+        calls.append(chunk)
+        return ssd_chunked(x, dt, A, B, C, D, init, chunk)
+
+    monkeypatch.setattr(ssd_ops, "_ssd_cuda", fake)
+    return calls
+
+
+@pytest.mark.parametrize("cotangent", COTANGENTS)
+@pytest.mark.parametrize("case", list(SSD_CASES))
+def test_ssd_scan_fn_gradients_equal_the_plain_versions(monkeypatch, case,
+                                                        cotangent):
+    """``SSDScanFn``: one forward call of the kernel, which it does not
+    differentiate, and a backward that recomputes the plain scan from the
+    saved inputs: its gradients are autograd's through ``ssd_chunked``,
+    bitwise, B's and C's summed over each group's heads."""
+    args, chunk = _ssd_inputs(case)
+    cots = _cotangents(args, cotangent)
+    calls = _plain_kernel(monkeypatch)
+    got = _torch_grads(lambda *t: SSDScanFn.apply(*t, chunk), args, cots)
+    assert calls == [chunk]
+    want = _torch_grads(lambda *t: ssd_chunked(*t, chunk), args, cots)
+    for name, g, w in zip("x dt A B C D initial_state".split(), got, want):
+        assert torch.equal(g, w), name
+
+
+def test_ssd_scan_fn_returns_only_the_gradients_asked_for(monkeypatch):
+    """x and C require grad, the final state is not used: their gradients
+    are autograd's through the plain scan and no other operand gets one."""
+    args, chunk = _ssd_inputs("2x32_h4_g2_c8")
+    _plain_kernel(monkeypatch)
+    asked = (0, 4)
+    ts = [torch.from_numpy(a).requires_grad_(i in asked)
+          for i, a in enumerate(args)]
+    y, _ = SSDScanFn.apply(*ts, chunk)
+    y.sum().backward()
+    assert all((t.grad is not None) == (i in asked) for i, t in enumerate(ts))
+    us = [torch.from_numpy(a).requires_grad_(i in asked)
+          for i, a in enumerate(args)]
+    ssd_chunked(*us, chunk)[0].sum().backward()
+    for i in asked:
+        assert torch.equal(ts[i].grad, us[i].grad)
+
+
+def test_ssd_failure_in_training_raises_with_no_fallback(monkeypatch):
+    """A kernel call that fails under autograd raises; nothing runs the
+    plain version in its place."""
+    args, chunk = _ssd_inputs("ragged_2x37_c16")
+    plain = []
+
+    def broken(*a):
+        raise RuntimeError("ssd_scan: CUDA error 700 at launch")
+
+    monkeypatch.setattr(ssd_ops, "_ssd_cuda", broken)
+    monkeypatch.setattr(ssd_ops, "dispatch", lambda backend, x: "cuda")
+    monkeypatch.setattr(ssd_ops, "ssd_chunked",
+                        lambda *a: plain.append(1) or ssd_chunked(*a))
+    ts = [torch.from_numpy(a).requires_grad_() for a in args]
+    with pytest.raises(RuntimeError, match="CUDA error 700"):
+        ssd(*ts[:-1], chunk=chunk, initial_state=ts[-1])
+    assert plain == []
 
 
 def test_ssd_bf16_output_dtype_and_f32_state():

@@ -8,12 +8,15 @@ cast); the flash backward 2e-5 in f32 and 3e-2 in bf16 (the kernel
 tolerances); the model's loss and gradients 1e-4 in f32 and 5e-2 in bf16
 (the model tolerance of ``test_torch_model``), each gradient leaf compared
 through ``to_jax_params`` in the reference's layout, the tied embedding's
-gradient (lookup plus unembedding) as its own leaf.  Checkpoints written
-by either package restore in the other, and the in-repo checkpoint the
+gradient (lookup plus unembedding) as its own leaf.  The SSM and hybrid
+smoke models train on 40-token rows, so the SSD scan's state crosses
+chunks (16 steps each, the last one ragged).  Checkpoints written by
+either package restore in the other, and the in-repo checkpoint the
 reference's launcher wrote resumes in the port.
 """
 import json
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -52,7 +55,10 @@ from repro_torch.state.kv import GlobalTier
 
 REPO = Path(__file__).resolve().parents[1]
 CKPT = REPO / "artifacts" / "train_ckpt"
-DENSE, MOE, SSM = "qwen1.5-0.5b", "deepseek-moe-16b", "mamba2-130m"
+DENSE, MOE = "qwen1.5-0.5b", "deepseek-moe-16b"
+SSM, HYBRID = "mamba2-130m", "zamba2-1.2b"
+SSM_ARCHS = (SSM, HYBRID)
+SSM_SEQ = 40        # three SSD chunks of 16 at the smoke config, one ragged
 MODEL_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 B, S = 2, 16
@@ -98,6 +104,10 @@ def _models(arch, dtype, loss_chunk=8, remat="full", seed=0):
     params = trainable(from_jax_params(jax.tree.map(np.asarray, jparams),
                                        tcfg, "cpu"))
     return jmodel, jparams, model, params
+
+
+def _seq(arch) -> int:
+    return SSM_SEQ if arch in SSM_ARCHS else S
 
 
 def _batch(cfg, rows=B, seq=S, step=0):
@@ -378,10 +388,13 @@ def test_chunked_loss_and_grads_match_jax(chunk):
 
 @pytest.mark.parametrize("arch,dtype", [(DENSE, "float32"),
                                         (DENSE, "bfloat16"),
-                                        (MOE, "float32")])
+                                        (MOE, "float32"),
+                                        (SSM, "float32"), (SSM, "bfloat16"),
+                                        (HYBRID, "float32"),
+                                        (HYBRID, "bfloat16")])
 def test_forward_train_loss_and_every_gradient_match_jax(arch, dtype):
     jmodel, jparams, model, params = _models(arch, dtype)
-    batch = _batch(jmodel.cfg)
+    batch = _batch(jmodel.cfg, seq=_seq(arch))
     (jtotal, jm), jgrads = jax.jit(jax.value_and_grad(
         jmodel.loss, has_aux=True))(
         jparams, {k: jnp.asarray(v) for k, v in batch.items()})
@@ -401,8 +414,19 @@ def test_forward_train_loss_and_every_gradient_match_jax(arch, dtype):
 
 
 def test_remat_policies_give_equal_gradients():
-    _, _, model, params = _models(DENSE, "float32", remat="none")
-    batch = _batch(model.cfg)
+    _remat_policies_give_equal_gradients(DENSE)
+
+
+@pytest.mark.parametrize("arch", SSM_ARCHS)
+def test_ssm_remat_policies_give_equal_gradients(arch):
+    """Each Mamba layer and each shared-block application under remat
+    none, full and dots: the same gradients."""
+    _remat_policies_give_equal_gradients(arch)
+
+
+def _remat_policies_give_equal_gradients(arch):
+    _, _, model, params = _models(arch, "float32", remat="none")
+    batch = _batch(model.cfg, seq=_seq(arch))
     want = _port_grads(model, params, batch)[2]
     for remat in ("full", "dots"):
         m = build_model(model.cfg, model.ec.with_overrides(remat=remat))
@@ -414,19 +438,41 @@ def test_remat_policies_give_equal_gradients():
             params, {k: torch.from_numpy(v) for k, v in batch.items()})
 
 
-def test_ssm_forward_train_raises():
-    cfg = smoke_config(SSM)
-    model = build_model(cfg)
-    params = model.init(torch.Generator().manual_seed(0), "cpu")
-    batch = {k: torch.from_numpy(v) for k, v in _batch(cfg).items()}
-    with pytest.raises(NotImplementedError, match="SSM and hybrid training"):
-        model.loss(params, batch)
+@pytest.mark.parametrize("remat,per_layer", [("none", 1), ("full", 2),
+                                             ("dots", 2)])
+@pytest.mark.parametrize("arch", SSM_ARCHS)
+def test_ssm_train_step_calls_the_scan_kernel_per_forward(monkeypatch, arch,
+                                                          remat, per_layer):
+    """The card's route on CPU tensors: ``ssd`` sends each Mamba layer
+    through ``SSDScanFn``, whose kernel call (stood in for by the plain
+    version) runs once per layer in the forward and once more in the
+    remat recompute; the gradients are the plain path's, bitwise."""
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    _, _, model, params = _models(arch, "float32", remat=remat)
+    batch = _batch(model.cfg, seq=_seq(arch))
+    want = _port_grads(model, params, batch)[2]
+    calls = []
+
+    def kernel(*a):
+        calls.append(a[-1])
+        return ssd_ops.ssd_chunked(*a)
+
+    monkeypatch.setattr(ssd_ops, "dispatch", lambda backend, x: "cuda")
+    monkeypatch.setattr(ssd_ops, "_ssd_cuda", kernel)
+    got = _port_grads(model, params, batch)[2]
+    assert len(calls) == per_layer * model.cfg.n_layers
+    for n in want:
+        assert torch.equal(got[n], want[n]), n
 
 
 # -- three train steps -------------------------------------------------------------------------
 
-@pytest.mark.parametrize("opt", ["sgd", "adamw"])
-def test_three_train_steps_match_the_reference(opt):
+@pytest.mark.parametrize("arch,opt", [
+    (DENSE, "sgd"), (DENSE, "adamw"), (SSM, "sgd"), (SSM, "adamw"),
+    (HYBRID, "sgd"), (HYBRID, "adamw")], ids=[
+    "sgd", "adamw", f"{SSM}-sgd", f"{SSM}-adamw", f"{HYBRID}-sgd",
+    f"{HYBRID}-adamw"])
+def test_three_train_steps_match_the_reference(arch, opt):
     """``make_train_step`` against the reference launcher's ``raw_step``
     (value_and_grad, then the update) from the same parameters and
     batches: the loss at each step and the parameters after the last.
@@ -437,7 +483,7 @@ def test_three_train_steps_match_the_reference(opt):
     packages' gradients (1e-4 apart) move its steps by less than 1e-7.
     Its math at the default eps is held apart, on equal gradients
     (``test_optimizer_matches_jax``)."""
-    jmodel, jparams, model, params = _models(DENSE, "float32")
+    jmodel, jparams, model, params = _models(arch, "float32")
     spec = dict(OPTS[opt], **({"eps": 1e-3} if opt == "adamw" else {}))
     jopt = _opt(joptim, spec, joptim.warmup_cosine(0.05, 1, 3))
     topt = _opt(toptim, spec, toptim.warmup_cosine(0.05, 1, 3))
@@ -449,11 +495,11 @@ def test_three_train_steps_match_the_reference(opt):
         params, state = jopt.update(grads, state, params)
         return params, state, dict(m, loss=loss)
 
-    shape = ShapeConfig("t", "train", S, B)
+    shape = ShapeConfig("t", "train", _seq(arch), B)
     step = make_train_step(model, topt, shape)
     jstate, tstate = jopt.init(jparams), topt.init(params)
     for i in range(3):
-        batch = _batch(jmodel.cfg, step=i)
+        batch = _batch(jmodel.cfg, seq=_seq(arch), step=i)
         jparams, jstate, jm = raw_step(
             jparams, jstate, {k: jnp.asarray(v) for k, v in batch.items()})
         params, tstate, tm = step(params, tstate, {
@@ -467,7 +513,7 @@ def test_three_train_steps_match_the_reference(opt):
 # -- checkpoints --------------------------------------------------------------------------------
 
 @pytest.mark.parametrize("opt", ["sgd_momentum", "adamw"])
-@pytest.mark.parametrize("arch", [DENSE, MOE])
+@pytest.mark.parametrize("arch", [DENSE, MOE, SSM, HYBRID])
 def test_checkpoints_move_between_the_packages(tmp_path, arch, opt):
     jcfg, tcfg = _cfgs(arch, "bfloat16")
     jparams = jax_build_model(jcfg).init(jax.random.PRNGKey(2))
@@ -576,18 +622,27 @@ def test_global_tier_round_trip(tmp_path, tier):
 # -- the launchers ---------------------------------------------------------------------------
 
 def test_train_launcher_runs_on_the_cpu_when_asked(tmp_path):
+    _train_launcher_runs_on_the_cpu(tmp_path, [])
+
+
+@pytest.mark.parametrize("arch", SSM_ARCHS)
+def test_ssm_train_launcher_runs_on_the_cpu_when_asked(tmp_path, arch):
+    _train_launcher_runs_on_the_cpu(tmp_path, ["--arch", arch])
+
+
+def _train_launcher_runs_on_the_cpu(tmp_path, arch_args):
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
     r = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.train", "--smoke",
-         "--device", "cpu", "--steps", "3", "--ckpt-dir", str(tmp_path)],
-        env=env, capture_output=True, text=True, timeout=300)
+         "--device", "cpu", "--steps", "3", "--ckpt-dir", str(tmp_path)]
+        + arch_args, env=env, capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr
     assert "step     2 loss" in r.stdout and r.stdout.rstrip().endswith("done")
     manifest = json.loads((tmp_path / "step_3" / "manifest.json").read_text())
     assert manifest["paths"][-1] == "[1].step"
     # and resumes from its own checkpoint
     out = ttrain.main(["--smoke", "--device", "cpu", "--steps", "4",
-                       "--ckpt-dir", str(tmp_path), "--resume"])
+                       "--ckpt-dir", str(tmp_path), "--resume"] + arch_args)
     assert len(out["losses"]) == 1 and np.isfinite(out["losses"][0])
 
 
@@ -607,3 +662,35 @@ def test_example_twin_prints_the_reference_lines(tmp_path):
     assert len(out["losses"]) == 3
     assert all(np.isfinite(float(x)) for x in out["losses"])
     assert tckpt.Checkpointer(str(tmp_path)).latest_step() == 3
+
+
+def _masked(text: str, ckpt_dir) -> list:
+    """Output lines with the checkpoint directory and every number (and
+    the padding before it) masked: the lines' wording, not their values."""
+    text = text.replace(str(ckpt_dir), "<dir>")
+    return [re.sub(r"\s*\d+(\.\d+)?", " #", ln) for ln in text.splitlines()]
+
+
+@pytest.mark.parametrize("arch", SSM_ARCHS)
+def test_ssm_example_twin_prints_the_reference_lines(tmp_path, arch, capsys):
+    """The twin and ``examples/train_lm.py`` for an SSM architecture: the
+    same header line (name, parameter count, steps, batch and sequence)
+    and the same lines after it, numbers aside."""
+    sys.path.insert(0, str(REPO / "examples"))
+    import train_lm_torch as twin
+    argv = ["--arch", arch, "--smoke", "--steps", "3", "--ckpt-every", "0"]
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"), JAX_PLATFORMS="cpu")
+    r = subprocess.run([sys.executable, str(REPO / "examples" / "train_lm.py")]
+                       + argv + ["--ckpt-dir", str(tmp_path / "jax")],
+                       env=env, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    capsys.readouterr()
+    out = twin.main(argv + ["--device", "cpu", "--ckpt-dir",
+                            str(tmp_path / "torch")])
+    printed = capsys.readouterr().out
+    assert printed.splitlines()[0] == r.stdout.splitlines()[0]
+    assert _masked(printed, tmp_path / "torch") == \
+        _masked(r.stdout, tmp_path / "jax")
+    assert len(out["losses"]) == 3
+    assert all(np.isfinite(float(x)) for x in out["losses"])
+    assert tckpt.Checkpointer(str(tmp_path / "torch")).latest_step() == 3
