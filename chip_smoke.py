@@ -125,7 +125,25 @@ Phases, each fatal on failure:
    sizes as the models draw them, as in phase 7, and K5 and K6 at
    zamba2-1.2b's shared-block shapes (H 32); then each model's warm
    prefill and decode, and one profiled decode loop;
-14. training, qwen1.5-0.5b at full width at train_4k's sequence (4,096)
+14. gqa serve, for qwen3-4b, granite-3-8b and starcoder2-7b at full width
+   (4.0, 8.2 and 7.4 B parameters, bf16, random weights from the seed;
+   batch 4, prompt 512, 32 new tokens), one model on the card at a time,
+   as phases 3, 4 and 7: the drawn parameters counted against
+   ``param_count()`` (plus starcoder2's output and MLP biases, which it
+   leaves out); K5 exactly once per layer in the prefill and K6 once per
+   layer and decode step, every other kernel no time; the graphed loop
+   held bitwise against the eager loop; the teacher-forced logits against
+   the plain path (reported, as zamba2-1.2b's: at 32-40 layers the bf16
+   plain path itself lands farther than 5e-2 from the f32 logits; the
+   argmax held); every attention and MLP sublayer call of a kernel-path
+   run repeated on the plain path (3e-2); K5 and K6 timed at the model's
+   grouped-query shape (H 32 over K 8, or H 36 over K 4; D 128) beside
+   SDPA computing the same grouped function (``enable_gqa``, its kernels
+   logged) and SDPA on K/V repeated to H heads; the warm decode loop;
+   then, the graphs closed to make room, the weights widened to f32:
+   kernel path against plain path (5e-2), and the bf16 kernel path no
+   farther from those f32 logits than the bf16 plain path plus 5e-2;
+15. training, qwen1.5-0.5b at full width at train_4k's sequence (4,096)
    and batch 4: K5's softmax statistics (each row's log-sum-exp) and
    ``FlashAttentionFn``'s gradients (K5 forward, the plain flash
    backward) against ``attention_ref`` and autograd through it at one
@@ -143,12 +161,12 @@ Phases, each fatal on failure:
    and update by CUDA events, the profiled busy share; K5 timed at the
    training forward beside SDPA's forward, and the plain flash backward
    beside SDPA's backward;
-15. training, mamba2-130m and then zamba2-1.2b at full width, as phase
-   14: ``SSDScanFn`` (K8's forward, the plain chunked scan's backward) at
+16. training, mamba2-130m and then zamba2-1.2b at full width, as phase
+   15: ``SSDScanFn`` (K8's forward, the plain chunked scan's backward) at
    one Mamba layer's training shape, y and the final state against
    ``ssd_chunked`` and every operand's gradient from one backward against
    autograd through it, at the models' decays (3e-2); zamba2's shared
-   block also gets phase 14's K5 parity at H 32; the same holds, kernel
+   block also gets phase 15's K5 parity at H 32; the same holds, kernel
    path against plain path (zamba2 in two microbatches of 2 rows on both
    paths: the plain attention's scores at 32 heads and 4 rows do not fit
    beside its backward); the main path for 8 steps with K8 exactly twice
@@ -172,8 +190,8 @@ and last ``{"ok": true, "device": {...}}``.  Without a CUDA card, or run
 outside the repository, it exits non-zero and prints no result.
 ``python3 chip_smoke.py parity`` stops after phase 2 and prints no result;
 ``python3 chip_smoke.py flash`` builds, holds the attention kernels
-against their plain versions, times K5 at the three prefill shapes (as in
-phases 7, 10 and 13, with no launches counted) and stops: run it from two
+against their plain versions, times K5 at the five prefill shapes (as in
+phases 7, 10, 13 and 14, with no launches counted) and stops: run it from two
 checkouts in one call to compare two designs of K5.  ``python3
 chip_smoke.py gmm`` builds, holds K7 against its plain version at every
 phase-2 case in both dtypes, times it at the decode gate/up, decode down
@@ -186,12 +204,13 @@ fanout`` builds, holds K5 and K8 against their plain versions, runs
 phase 5 and times K5 and K8 at the fan-out's shape, and stops.  ``python3
 chip_smoke.py
 decode`` holds the attention kernels against their plain versions, times
-K6 at the three served decode shapes beside SDPA (on one cache, and over
+K6 at the five served decode shapes beside SDPA (on one cache, and over
 8 caches taken in turn so that each call reads HBM), lists the kernels one
 call launches, and stops; ``python3 chip_smoke.py ssd`` holds K8 at every
 phase-2 case, times it at both SSM prefill shapes with the time of each of
 its kernels, and stops.  ``python3 chip_smoke.py train`` builds, holds the attention kernels,
-runs phases 14 and 15 and stops.  ``python3 chip_smoke.py profile`` serves each of
+runs phases 15 and 16 and stops.  ``python3 chip_smoke.py gqa``
+builds, holds the attention kernels and runs phase 14 alone.  ``python3 chip_smoke.py profile`` serves each of
 the four models and prints the device time of one prefill and of one
 decode step (profiler, two runs each) and the wall of each, of the eager
 loop and, where the launcher has step graphs, of their replays, and
@@ -222,10 +241,16 @@ SRC = ROOT / "src"
 ARCH, BATCH, PROMPT, NEW_TOKENS, SEED = "qwen1.5-0.5b", 4, 512, 32, 0
 MOE_ARCH = "deepseek-moe-16b"
 SSM_ARCHS = ("mamba2-130m", "zamba2-1.2b")
+# the grouped-query decoders (qwen3-4b and granite-3-8b share H 32 over K 8)
+GQA_ARCHS = ("qwen3-4b", "granite-3-8b", "starcoder2-7b")
 # configs whose teacher-forced logits are reported, not held to LOGIT_TOL
 # (every sublayer is held instead, and the logits in f32; see
-# phase_ssm_sublayers and phase_ssm_witnesses)
-LOGITS_HELD = {"zamba2-1.2b": False}
+# phase_sublayers, phase_ssm_witnesses and phase_f32_witness): their bf16
+# plain path itself lands farther than LOGIT_TOL from the f32 logits
+# (zamba2-1.2b 0.19; the GQA decoders, 32-40 layers deep, 0.054-0.092 on
+# an H100), so the two bf16 paths cannot be held closer than that
+LOGITS_HELD = {"zamba2-1.2b": False, "qwen3-4b": False, "granite-3-8b": False,
+               "starcoder2-7b": False}
 TOL = {"float32": 2e-5, "bfloat16": 3e-2}   # the repo's kernel tolerances
 GMM_TOL = {"float32": 1e-4, "bfloat16": 3e-2}   # the reference's gmm, bf16
 SSD_TOL = {"float32": 1e-4, "bfloat16": 3e-2}   # the reference's ssd, bf16
@@ -258,13 +283,19 @@ FLASH_CASES = [
     (2, 150, 150, 16, 4, 128, True, 0),      # GQA G=4, D 128
     (2, 40, 50, 8, 2, 64, True, 10),         # fewer keys than one KV tile
     (1, 70, 20, 4, 4, 128, False, 0),
+    (4, 512, 512, 32, 8, 128, True, 0),      # qwen3-4b's, granite-3-8b's: G 4
+    (4, 512, 512, 36, 4, 128, True, 0),      # starcoder2-7b's prefill: G 9
 ]
-# the bf16 parity case whose error each timing row of K5 reports
+# the bf16 parity case (causal, Sq = Sk = S, no offset), keyed (B, S, H,
+# K, D), whose error the timing rows of K5 at that shape report
 FLASH_ROWS = {
-    (4, 512, 512, 16, 16, 64, True, 0): "flash_attention",
-    (1, 16, 16, 16, 16, 64, True, 0): "flash_attention[fan-out]",
-    (4, 512, 512, 16, 16, 128, True, 0): f"flash_attention[{MOE_ARCH}]",
-    (4, 512, 512, 32, 32, 64, True, 0): f"flash_attention[{SSM_ARCHS[1]}]",
+    (4, 512, 16, 16, 64): ("flash_attention",),
+    (1, 16, 16, 16, 64): ("flash_attention[fan-out]",),
+    (4, 512, 16, 16, 128): (f"flash_attention[{MOE_ARCH}]",),
+    (4, 512, 32, 32, 64): (f"flash_attention[{SSM_ARCHS[1]}]",),
+    (4, 512, 32, 8, 128): tuple(f"flash_attention[{a}]"
+                                for a in GQA_ARCHS[:2]),
+    (4, 512, 36, 4, 128): (f"flash_attention[{GQA_ARCHS[2]}]",),
 }
 DECODE_CASES = [
     # B, S, H, K, D, lengths
@@ -277,12 +308,18 @@ DECODE_CASES = [
     (5, 100, 8, 8, 32, (3, 33, 64, 65, 100)),
     (3, 400, 16, 8, 64, (2, 128, 129)),          # G=2, split edges
     (2, 777, 36, 4, 128, (777, 300)),            # G=9: two head groups
+    (4, 544, 32, 8, 128, (513, 530, 543, 544)),  # qwen3-4b's, granite-3-8b's
+    (4, 544, 36, 4, 128, (513, 530, 543, 544)),  # starcoder2-7b's: G 9
 ]
-# the bf16 parity case whose error each timing row of K6 reports
+# the bf16 parity case, keyed (B, S, H, K, D), whose error the timing rows
+# of K6 at that shape report
 DECODE_ROWS = {
-    (4, 544, 16, 64): "decode_attention",
-    (4, 544, 16, 128): f"decode_attention[{MOE_ARCH}]",
-    (4, 544, 32, 64): f"decode_attention[{SSM_ARCHS[1]}]",
+    (4, 544, 16, 16, 64): ("decode_attention",),
+    (4, 544, 16, 16, 128): (f"decode_attention[{MOE_ARCH}]",),
+    (4, 544, 32, 32, 64): (f"decode_attention[{SSM_ARCHS[1]}]",),
+    (4, 544, 32, 8, 128): tuple(f"decode_attention[{a}]"
+                                for a in GQA_ARCHS[:2]),
+    (4, 544, 36, 4, 128): (f"decode_attention[{GQA_ARCHS[2]}]",),
 }
 
 
@@ -566,9 +603,9 @@ def phase_parity() -> dict:
             err = check_close(f"flash {dtype} B{B} Sq{Sq} Sk{Sk} H{H} K{K} "
                               f"D{D} causal={causal} q_offset={off}",
                               got, want, tol)
-            case = (B, Sq, Sk, H, K, D, causal, off)
-            if dtype == torch.bfloat16 and case in FLASH_ROWS:
-                errs[FLASH_ROWS[case]] = err
+            if dtype == torch.bfloat16 and causal and off == 0 and Sq == Sk:
+                for name in FLASH_ROWS.get((B, Sq, H, K, D), ()):
+                    errs[name] = err
         for (B, S, H, K, D, lens) in DECODE_CASES:
             q = torch.randn(B, H, D, generator=g, device=dev).to(dtype)
             k = torch.randn(B, S, K, D, generator=g, device=dev).to(dtype)
@@ -583,8 +620,9 @@ def phase_parity() -> dict:
             torch.cuda.synchronize()
             err = check_close(f"decode {dtype} B{B} S{S} H{H} K{K} D{D} "
                               f"lengths={lens}", got, want, tol)
-            if dtype == torch.bfloat16 and (B, S, H, D) in DECODE_ROWS:
-                errs[DECODE_ROWS[(B, S, H, D)]] = err
+            if dtype == torch.bfloat16:
+                for name in DECODE_ROWS.get((B, S, H, K, D), ()):
+                    errs[name] = err
     return errs
 
 
@@ -847,13 +885,34 @@ def close_graphs(res) -> None:
         res["graphs"].close()
 
 
-def phase_serve() -> tuple:
+def free_model(res) -> None:
+    """Close a served model's graphs and let its weights leave the card."""
+    import torch
+    close_graphs(res)
+    res.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def uncounted_biases(cfg) -> int:
+    """The bias parameters ``ModelConfig.param_count()`` leaves out (it
+    counts QKV biases only): the output projection's and the MLP's, per
+    layer (starcoder2-7b has both)."""
+    return cfg.n_layers * ((cfg.d_model if cfg.o_bias else 0) + (
+        cfg.d_ff + cfg.d_model if cfg.mlp_bias else 0))
+
+
+def phase_serve(arch: str = ARCH) -> tuple:
+    """The launcher's main path on a dense decoder at full width, counters
+    zeroed just before: K5 once per layer in the prefill, K6 once per
+    layer and decode step; the drawn parameters counted against
+    ``param_count()`` (plus ``uncounted_biases``)."""
     import torch
     from repro_torch.launch import serve
-    log(f"serve: {ARCH} full width, bf16, batch {BATCH}, prompt {PROMPT}, "
+    log(f"serve: {arch} full width, bf16, batch {BATCH}, prompt {PROMPT}, "
         f"{NEW_TOKENS} new tokens")
     reset_launches()
-    res = serve.main(["--arch", ARCH, "--batch", str(BATCH), "--prompt-len",
+    res = serve.main(["--arch", arch, "--batch", str(BATCH), "--prompt-len",
                       str(PROMPT), "--new-tokens", str(NEW_TOKENS),
                       "--device", "cuda", "--seed", str(SEED)],
                      keep_logits=True)
@@ -874,8 +933,15 @@ def phase_serve() -> tuple:
     if not bool(((gen >= 0) & (gen < cfg.vocab_size)).all()):
         raise AssertionError("generated ids out of the vocabulary")
     n_params = sum(p.numel() for p in res["params"].parameters())
-    log(f"  {n_params / 1e6:.1f}M parameters; prefill {res['prefill_s'] * 1e3:.2f}ms, "
-        f"decode {res['decode_s'] * 1e3:.2f}ms "
+    want_params = cfg.param_count() + uncounted_biases(cfg)
+    if n_params != want_params or res["params"].embed.dtype != torch.bfloat16:
+        raise AssertionError(f"{n_params} parameters (param_count() "
+                             f"{cfg.param_count()} + {uncounted_biases(cfg)} "
+                             f"biases it leaves out), or not bf16")
+    log(f"  {n_params / 1e6:.1f}M parameters (param_count() "
+        f"{cfg.param_count()} + {uncounted_biases(cfg)} biases; "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card); prefill "
+        f"{res['prefill_s'] * 1e3:.2f}ms, decode {res['decode_s'] * 1e3:.2f}ms "
         f"(first run: {BATCH * (NEW_TOKENS - 1) / res['decode_s']:.1f} tok/s)")
     return res, launches
 
@@ -906,12 +972,58 @@ def phase_reference(res) -> list:
     return ref_logits
 
 
+def sdpa(q, k, v, **kw):
+    """SDPA on (B, heads, S, D) operands, grouped (``enable_gqa``) where
+    K/V have fewer heads than q, as K5 and K6 take them: the same
+    function as the kernel's, on the same operands."""
+    import torch.nn.functional as F
+    if q.shape[1] != k.shape[1]:
+        kw["enable_gqa"] = True
+    return F.scaled_dot_product_attention(q, k, v, **kw)
+
+
+def sdpa_kernels(fn) -> str:
+    """The SDPA backend one call of ``fn`` ran, read off the names of the
+    kernels in a whole profiler trace of it, and those kernels."""
+    per_call = kernels_per_call(fn, iters=5)
+    if per_call is None:
+        return "unknown (no whole trace)"
+    names = " ".join(per_call).lower()
+    backend = ("cudnn" if "cudnn" in names else
+               "flash" if "flash" in names else
+               "efficient" if "fmha" in names or "mem_eff" in names else
+               "math")
+    return f"the {backend} backend ({per_call})"
+
+
+def _library_times(kernel, q, k, v, **kw) -> tuple:
+    """The kernel's and SDPA's device times by one method
+    (``device_times``).  At a grouped-query shape (K/V with fewer heads
+    than q), SDPA computes the grouped function (``sdpa``), and SDPA on
+    K/V repeated to the query's heads (the copies made before the timed
+    calls) is timed beside it, each with the kernels it ran, for the log.
+    Returns (kernel ms, SDPA ms, method, note)."""
+    import torch.nn.functional as F
+    H, K = q.shape[1], k.shape[1]
+    lib = lambda: sdpa(q, k, v, **kw)
+    if H == K:
+        (k_ms, lib_ms), how = device_times([kernel, lib])
+        return k_ms, lib_ms, how, ""
+    kr, vr = (x.repeat_interleave(H // K, dim=1) for x in (k, v))
+    rep = lambda: F.scaled_dot_product_attention(q, kr, vr, **kw)
+    (k_ms, lib_ms, rep_ms), how = device_times([kernel, lib, rep])
+    return k_ms, lib_ms, how, (
+        f"; SDPA with enable_gqa ran {sdpa_kernels(lib)}; SDPA on K/V "
+        f"repeated to {H} heads took {rep_ms * 1e3:.2f}us and ran "
+        f"{sdpa_kernels(rep)}")
+
+
 def _flash_row(name, B, S, H, K, D, launches, errs, g) -> tuple:
     """K5 at one layer's prefill call (bf16, causal, Sq = Sk = S): its
     kernels-line row (device time from the profiler, plain version, SDPA,
-    bound) and its back-to-back call time."""
+    bound), its back-to-back call time, the method and a note on SDPA
+    (``_library_times``)."""
     import torch
-    import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (attention_ref,
                                                      flash_attention)
     bf16, dev = torch.bfloat16, "cuda"
@@ -925,24 +1037,23 @@ def _flash_row(name, B, S, H, K, D, launches, errs, g) -> tuple:
     back_to_back = call_ms(kernel)
     queued, how = queued_ms(kernel)
     log(f"  {name}: {queued * 1e3:.2f}us per call by CUDA events, {how}")
-    (k_ms, lib_ms), how = device_times(
-        [kernel, lambda: F.scaled_dot_product_attention(qt, kt, vt,
-                                                        is_causal=True)])
+    k_ms, lib_ms, how, note = _library_times(kernel, qt, kt, vt,
+                                             is_causal=True)
     row = _row(
         name, "src/repro_torch/kernels/csrc/flash_attention.cu",
         "src/repro/kernels/flash_attention/kernel.py:84", launches, errs,
         k_ms, device_ms(lambda: attention_ref(q, k, v, causal=True), iters=5),
         lib_ms, nbytes, flops)
-    return row, back_to_back, how
+    return row, back_to_back, how, note
 
 
-def _log_flash_row(r, back_to_back, how, shape) -> None:
+def _log_flash_row(r, back_to_back, how, shape, note="") -> None:
     log(f"timing, K5 at {shape}: {r['ms'] * 1e3:.1f}us device, "
         f"{back_to_back * 1e3:.1f}us back-to-back, bound "
         f"{r['bound_ms'] * 1e3:.2f}us ({r['bound_by']}), plain "
         f"{r['plain_ms'] * 1e3:.1f}us, library {r['library_ms'] * 1e3:.1f}us "
         f"(SDPA; kernel and SDPA by the {how}), launches "
-        f"{r['launches']}")
+        f"{r['launches']}{note}")
 
 
 def phase_timing_flash(res, launches: int, errs) -> list:
@@ -954,10 +1065,10 @@ def phase_timing_flash(res, launches: int, errs) -> list:
         f"flash_attention[{cfg.name}]"
     H, K, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     g = torch.Generator(device="cuda").manual_seed(SEED + 9)
-    row, back_to_back, how = _flash_row(name, BATCH, PROMPT, H, K, D,
-                                        {name: launches}, errs, g)
+    row, back_to_back, how, note = _flash_row(
+        name, BATCH, PROMPT, H, K, D, {name: launches}, errs, g)
     _log_flash_row(row, back_to_back, how, f"{cfg.name}'s prefill (B "
-                   f"{BATCH} S {PROMPT} H {H} K {K} D {D})")
+                   f"{BATCH} S {PROMPT} H {H} K {K} D {D})", note)
     return [row]
 
 
@@ -1000,8 +1111,8 @@ def _decode_row(name, B, S, H, K, D, launches, errs, g) -> tuple:
     """K6 at one layer's last decode step (bf16, a cache of S positions,
     S - 1 valid): its kernels-line row (kernel and SDPA timed by one
     method, plain version, bound), its back-to-back call time, the method,
-    and the kernels one call launched (``one_decode_kernel``)."""
-    import torch.nn.functional as F
+    the kernels one call launched (``one_decode_kernel``) and a note on
+    SDPA (``_library_times``)."""
     from repro_torch.kernels.decode_attention import (decode_attention,
                                                       decode_attention_ref)
     q, kc, vc, lengths, (qt, kt, vt, mask) = _decode_operands(g, B, S, H, K, D)
@@ -1010,15 +1121,14 @@ def _decode_row(name, B, S, H, K, D, launches, errs, g) -> tuple:
     flops = 4 * D * B * H * n
     kernel = lambda: decode_attention(q, kc, vc, lengths)
     back_to_back = call_ms(kernel)
-    (k_ms, lib_ms), how = device_times(
-        [kernel, lambda: F.scaled_dot_product_attention(qt, kt, vt,
-                                                        attn_mask=mask)])
+    k_ms, lib_ms, how, note = _library_times(kernel, qt, kt, vt,
+                                             attn_mask=mask)
     row = _row(
         name, "src/repro_torch/kernels/csrc/decode_attention.cu",
         "src/repro/kernels/decode_attention/kernel.py:69", launches, errs,
         k_ms, device_ms(lambda: decode_attention_ref(q, kc, vc, lengths)),
         lib_ms, nbytes, flops)
-    return row, back_to_back, how, one_decode_kernel(kernel)
+    return row, back_to_back, how, one_decode_kernel(kernel), note
 
 
 def phase_timing_decode(res, launches: int, errs) -> list:
@@ -1031,7 +1141,7 @@ def phase_timing_decode(res, launches: int, errs) -> list:
         f"decode_attention[{cfg.name}]"
     H, K, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     g = torch.Generator(device="cuda").manual_seed(SEED + 1)
-    row, back_to_back, how, per_call = _decode_row(
+    row, back_to_back, how, per_call, note = _decode_row(
         name, BATCH, PROMPT + NEW_TOKENS, H, K, D, {name: launches}, errs, g)
     log(f"timing, K6 at {cfg.name}'s last decode step (B {BATCH} S "
         f"{PROMPT + NEW_TOKENS} H {H} K {K} D {D}): {row['ms'] * 1e3:.2f}us "
@@ -1040,7 +1150,7 @@ def phase_timing_decode(res, launches: int, errs) -> list:
         f"{row['plain_ms'] * 1e3:.1f}us, library "
         f"{row['library_ms'] * 1e3:.2f}us (SDPA, masked; kernel and SDPA by "
         f"the {how}), launches {row['launches']}; kernels per call: "
-        f"{per_call}")
+        f"{per_call}{note}")
     return [row]
 
 
@@ -1063,15 +1173,15 @@ def phase_timing_fanout_flash(launches: int, errs) -> list:
     H, K, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     name = "flash_attention[fan-out]"
     g = torch.Generator(device="cuda").manual_seed(SEED + 10)
-    row, back_to_back, how = _flash_row(name, 1, 16, H, K, D,
-                                        {name: launches}, errs, g)
+    row, back_to_back, how, _ = _flash_row(name, 1, 16, H, K, D,
+                                           {name: launches}, errs, g)
     _log_flash_row(row, back_to_back, how, f"the fan-out's forward (B 1 "
                    f"S 16 H {H} K {K} D {D})")
     return [row]
 
 
 def phase_timing(res, launches, errs) -> list:
-    """K5 and K6 at qwen1.5-0.5b's prefill and last decode step."""
+    """K5 and K6 at a dense decoder's prefill and last decode step."""
     rows = phase_timing_flash(res, launches["flash_attention"], errs)
     rows += phase_timing_decode(res, launches["decode_attention"], errs)
     return rows
@@ -2237,13 +2347,10 @@ def phase_ssm_witnesses(res, plain_logits) -> None:
     rel, where a kernel that computed another function would stand out;
     and the bf16 kernel path held no farther from the f32 plain path than
     the bf16 plain path is, plus LOGIT_TOL."""
-    import dataclasses
-    import torch
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.kernels.ssd_scan.ref import ssd_ref
     from repro_torch.models import ExecConfig, build_model
-    from repro_torch.models.ssm_stack import SSMStack
-    cfg, gen = res["cfg"], res["gen"]
+    cfg = res["cfg"]
     plain_ec = ExecConfig(backend="torch")
     chunked = ssd_ops.ssd_chunked
     ssd_ops.ssd_chunked = lambda x, dt, A, B, C, D, st, chunk: ssd_ref(
@@ -2256,8 +2363,24 @@ def phase_ssm_witnesses(res, plain_logits) -> None:
     log(f"  witness 1, two plain paths in bf16 (SSD by the sequential oracle "
         f"vs the chunked scan): max |dlogit| {gap:.4f}, argmax agreement "
         f"{_agree(oracle, plain_logits):.3f} (reported)")
+    phase_f32_witness(res, plain_logits, "witness 2, ")
+
+
+def phase_f32_witness(res, plain_logits, label: str = "") -> None:
+    """The model with its bf16 weights widened to f32, on the main-path
+    run's prompt and tokens (teacher forcing): the kernel path against the
+    plain path, held within LOGIT_TOL abs + rel, where a kernel that
+    computed another function would stand out; and the bf16 kernel path
+    held no farther from the f32 plain path than the bf16 plain path
+    (``plain_logits``) is, plus LOGIT_TOL."""
+    import dataclasses
+    import torch
+    from repro_torch.models import ExecConfig, build_model
+    from repro_torch.models.weights import params_class
+    cfg, gen = res["cfg"], res["gen"]
+    plain_ec = ExecConfig(backend="torch")
     cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
-    params32 = SSMStack(cfg32, device="cuda")
+    params32 = params_class(cfg32)(cfg32, device="cuda")
     with torch.no_grad():
         for p32, p in zip(params32.parameters(), res["params"].parameters()):
             p32.copy_(p)
@@ -2267,7 +2390,7 @@ def phase_ssm_witnesses(res, plain_logits) -> None:
     worst, excess, _ = _held(kernel32, plain32, gen)
     to32 = [max(float((a - b).abs().max()) for a, b in zip(run, plain32))
             for run in (res["logits"], plain_logits)]
-    log(f"  witness 2, weights widened to f32: kernel path vs plain path max "
+    log(f"  {label}weights widened to f32: kernel path vs plain path max "
         f"|dlogit| {worst:.3e} (held within {LOGIT_TOL} abs + rel), argmax "
         f"agreement {_agree(kernel32, plain32):.3f}; against the f32 plain "
         f"path the bf16 kernel path lands {to32[0]:.4f} away, the bf16 plain "
@@ -2287,13 +2410,13 @@ def _agree(a_steps, b_steps) -> float:
     return n / sum(a.shape[0] for a in a_steps)
 
 
-def phase_ssm_sublayers(res) -> None:
-    """Sublayer by sublayer on an SSM model: every Mamba2 prefill,
+def phase_sublayers(res) -> None:
+    """Sublayer by sublayer on an SSM or dense model: every Mamba2 prefill,
     attention and MLP call of a kernel-path run repeated on the plain path
     on the same input, each output held within the bf16 kernel tolerance.
     zamba2-1.2b's logits are reported (LOGITS_HELD) and held here sublayer
     by sublayer, as the MoE model's are (phase 9); phase_ssm_witnesses
-    says whether their gap is rounding."""
+    and phase_f32_witness say whether their gap is rounding."""
     stats, rerun = _sublayer_run(res)
     again = max(float((a - b).abs().max()) for a, b in zip(rerun, res["logits"]))
     log(f"  the kernel path run again: max |dlogit| {again:.3e} against the "
@@ -2420,12 +2543,13 @@ def phase_profile() -> None:
 
 
 DECODE_SHAPES = [(ARCH, 16, 16, 64), (MOE_ARCH, 16, 16, 128),
-                 (SSM_ARCHS[1], 32, 32, 64)]   # served: name, H, K, D
+                 (SSM_ARCHS[1], 32, 32, 64),   # served: name, H, K, D
+                 (GQA_ARCHS[0], 32, 8, 128), (GQA_ARCHS[2], 36, 4, 128)]
 DECODE_COLD = 8        # caches taken in turn for an L2-cold time (71-142 MB)
 
 
 def phase_decode_ab() -> None:
-    """K6 alone at the three served decode shapes, held against its plain
+    """K6 alone at the served decode shapes, held against its plain
     version and timed beside SDPA by one method in turns (kernel, SDPA,
     SDPA, kernel), once on one cache (L2-warm, as the kernel table's rows)
     and once over DECODE_COLD caches taken in turn (each call finds its
@@ -2434,7 +2558,6 @@ def phase_decode_ab() -> None:
     this script in an earlier checkout times that checkout's K6."""
     import itertools
     import torch
-    import torch.nn.functional as F
     from repro_torch.kernels.decode_attention import (decode_attention,
                                                       decode_attention_ref)
     g = torch.Generator(device="cuda").manual_seed(SEED + 1)
@@ -2447,13 +2570,12 @@ def phase_decode_ab() -> None:
         check_close(f"K6 {arch}", decode_attention(q, kc, vc, lengths),
                     decode_attention_ref(q, kc, vc, lengths), TOL["bfloat16"])
         kernel = lambda: decode_attention(q, kc, vc, lengths)
-        sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt,
-                                                      attn_mask=mask)
+        lib = lambda: sdpa(qt, kt, vt, attn_mask=mask)
         nxt = itertools.cycle(ops).__next__
         cold_kernel = lambda: decode_attention(*nxt()[:4])
-        cold_sdpa = lambda: (lambda o: F.scaled_dot_product_attention(
-            *o[4][:3], attn_mask=o[4][3]))(nxt())
-        warm, how = device_times([kernel, sdpa, sdpa, kernel])
+        cold_sdpa = lambda: (lambda o: sdpa(*o[4][:3], attn_mask=o[4][3]))(
+            nxt())
+        warm, how = device_times([kernel, lib, lib, kernel])
         cold, cold_how = device_times([cold_kernel, cold_sdpa, cold_sdpa,
                                        cold_kernel])
         us = lambda t: (f"kernel {t[0] * 1e3:.2f}/{t[3] * 1e3:.2f}, sdpa "
@@ -3012,6 +3134,28 @@ def phase_timing_train_ssd(cfg, launches: int, errs, smi: str) -> list:
     return rows
 
 
+def phase_gqa(arch: str, errs) -> list:
+    """Phase 14 for one grouped-query decoder: its main path with exact
+    launch counts, the graphed loop against the eager loop, the logits
+    against the plain path and sublayer by sublayer, K5 and K6 at its
+    shapes beside SDPA, the warm decode loop, the weights widened to f32
+    (once its graphs are closed); then the model leaves the card.
+    Returns its timing rows."""
+    t0 = time.perf_counter()
+    res, launches = phase_serve(arch)
+    phase_graph_hold(res)
+    plain_logits = phase_reference(res)
+    phase_sublayers(res)
+    rows = phase_timing(res, launches, errs)
+    phase_warm_serve(res, decode_only=True)
+    close_graphs(res)         # room for the f32 copy beside the bf16 one
+    phase_f32_witness(res, plain_logits)
+    del plain_logits
+    free_model(res)
+    log(f"gqa {arch}: {time.perf_counter() - t0:.1f}s")
+    return rows
+
+
 def phase_training(arch: str, errs, smi: str) -> list:
     """The training phase of one architecture: the kernels' training
     parity at its shapes, the kernel-path holds, the main path's run and
@@ -3050,9 +3194,10 @@ def main(argv) -> int:
     sys.path.insert(0, str(SRC))
     mode = argv[0] if argv else None
     if mode not in (None, "parity", "flash", "gmm", "decode", "ssd",
-                    "profile", "fanout", "train") or len(argv) > 1:
+                    "profile", "fanout", "train", "gqa") or len(argv) > 1:
         print(f"chip_smoke: arguments {argv}: none, or one of parity, flash, "
-              f"gmm, decode, ssd, profile, fanout, train", file=sys.stderr)
+              f"gmm, decode, ssd, profile, fanout, train, gqa",
+              file=sys.stderr)
         return 2
     parity_only = mode == "parity"        # a new kernel's first, short run
     flash_only = mode == "flash"          # K5 alone: A/B of its designs
@@ -3082,9 +3227,16 @@ def main(argv) -> int:
     errs = phase_parity()
     if flash_only:
         from repro_torch.configs import get_config
-        for arch in (ARCH, MOE_ARCH, SSM_ARCHS[1]):
+        for arch in (ARCH, MOE_ARCH, SSM_ARCHS[1], GQA_ARCHS[0],
+                     GQA_ARCHS[2]):
             phase_timing_flash({"cfg": get_config(arch)}, 0, errs)
         phase_timing_fanout_flash(0, errs)
+        log(smi)
+        return 0
+    if mode == "gqa":                     # the grouped-query decoders alone
+        rows = [r for arch in GQA_ARCHS for r in phase_gqa(arch, errs)]
+        log(json.dumps({"kernels": rows}))
+        log(f"chip_smoke: {time.perf_counter() - t0:.1f}s")
         log(smi)
         return 0
     if mode == "train":                   # the training paths alone
@@ -3128,10 +3280,7 @@ def main(argv) -> int:
     rows += phase_timing_fanout(fanout_launches, ssm_fanout_launches, errs)
     rows += phase_timing_state_push(launches, errs)
     phase_warm_serve(res)
-    close_graphs(res)
-    del res                       # the qwen model leaves the card
-    gc.collect()
-    torch.cuda.empty_cache()
+    free_model(res)               # the qwen model leaves the card
     moe_res, moe_launches = phase_moe_serve()
     routes = phase_graph_hold(moe_res, record_routes=True)
     phase_moe_reference(moe_res, routes)
@@ -3141,15 +3290,12 @@ def main(argv) -> int:
     rows += phase_timing_decode(moe_res, moe_launches["decode_attention"],
                                 errs)
     phase_warm_serve(moe_res, decode_only=True)
-    close_graphs(moe_res)
-    del moe_res                   # the MoE model leaves the card
-    gc.collect()
-    torch.cuda.empty_cache()
+    free_model(moe_res)           # the MoE model leaves the card
     for arch in SSM_ARCHS:
         res, ssm_launches = phase_ssm_serve(arch)
         phase_graph_hold(res)
         phase_ssm_witnesses(res, phase_reference(res))
-        phase_ssm_sublayers(res)
+        phase_sublayers(res)
         # one SSM model on the card at a time: time and profile it now
         rows += phase_timing_ssd(res, ssm_launches["ssd_scan"], errs)
         if ssm_launches["flash_attention"]:      # the hybrid's shared block
@@ -3158,10 +3304,9 @@ def main(argv) -> int:
             rows += phase_timing_decode(res, ssm_launches["decode_attention"],
                                         errs)
         phase_warm_serve(res, decode_only=True)
-        close_graphs(res)
-        del res
-        gc.collect()
-        torch.cuda.empty_cache()
+        free_model(res)
+    for arch in GQA_ARCHS:        # one at a time, each freed after its phase
+        rows += phase_gqa(arch, errs)
     for arch in TRAIN_ARCHS:
         rows += phase_training(arch, errs, smi)
     log(f"chip_smoke: {time.perf_counter() - t0:.1f}s")

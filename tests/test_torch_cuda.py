@@ -55,6 +55,8 @@ FLASH_CASES = [
     (2, 150, 150, 16, 4, 128, True, 0),         # GQA G=4, D 128
     (2, 40, 50, 8, 2, 64, True, 10),            # fewer keys than one KV tile
     (1, 70, 20, 4, 4, 128, False, 0),
+    (4, 512, 512, 32, 8, 128, True, 0),         # qwen3-4b's, granite-3-8b's
+    (4, 512, 512, 36, 4, 128, True, 0),         # starcoder2-7b's prefill: G 9
 ]
 DECODE_CASES = [
     # B, S, H, K, D
@@ -66,9 +68,13 @@ DECODE_CASES = [
     (3, 400, 16, 8, 64),                        # G 2
     (2, 1000, 8, 1, 64),                        # G 8 (MQA), a long cache
     (2, 777, 36, 4, 128),                       # G 9: two head groups
+    (4, 544, 32, 8, 128),                       # qwen3-4b's, granite-3-8b's
+    (4, 544, 36, 4, 128),                       # starcoder2-7b's: G 9
 ]
-# H, K, D at batch 4 over a cache of 544: the three served shapes, G 2, 4, 8
+# H, K, D at batch 4 over a cache of 544: the five served shapes (the
+# last two grouped, G 4 and G 9), G 2, 4, 8
 DECODE_EDGE_SHAPES = [(16, 16, 64), (16, 16, 128), (32, 32, 64),
+                      (32, 8, 128), (36, 4, 128),
                       (16, 8, 64), (16, 4, 128), (8, 1, 64)]
 
 
@@ -754,7 +760,7 @@ def test_device_replica_pull_applies_on_card(card):
 # -- the serving loop's compiled step (launch/step_graphs.py) ----------------
 
 GRAPH_ARCHS = ["qwen1.5-0.5b", "deepseek-moe-16b", "mamba2-130m",
-               "zamba2-1.2b"]
+               "zamba2-1.2b", "qwen3-4b", "granite-3-8b", "starcoder2-7b"]
 
 
 def _kernel_counters():
