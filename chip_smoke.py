@@ -60,7 +60,20 @@ Phases, each fatal on failure:
    capture the forward again, a Faaslet cold start must not;
 6. device plane: two hosts of the runtime; one pushes from a device
    replica (K1 on device tensors), the other's device replica catches up
-   through a delta pull (K2);
+   through a delta pull (K2); then the paper's other experiments through
+   their twins, each with the counters zeroed just before it: the
+   quickstart (its accumulated vector held), the chained matmul at n
+   2,048 with 2 and 4 splits (rel-err < 1e-5 against numpy's B @ C),
+   Fig. 6's HOGWILD SGD at RCV1's 47,236 features (4,096 examples, 8
+   workers, 2 epochs) in both isolation modes on the exact and int8 wires,
+   traced: accuracy above 0.5, the container's transfer and billable
+   memory above the Faaslet's, K1's launches exactly the int8 encodes the
+   wire.push and wire.pull spans record (16 pushes on the int8 wire); one
+   worker on the card bitwise the same run on the CPU, both wires; the
+   Fig. 9 twin (K1-K3 and K5-K8 at the reference's fixed f32 shapes, each
+   held against its plain version, its launches exact); the Tab. 3 /
+   Fig. 10 twin's rows with K1 counted per wire section; the dispatch
+   twin with its floors reported, not held;
 7. timing: each kernel's device time per call at the main path's shapes
    (K5 and K8 also at the fan-out's (1, 16) forward)
    (torch.profiler's CUDA trace; back-to-back call time by CUDA events is
@@ -210,7 +223,9 @@ call launches, and stops; ``python3 chip_smoke.py ssd`` holds K8 at every
 phase-2 case, times it at both SSM prefill shapes with the time of each of
 its kernels, and stops.  ``python3 chip_smoke.py train`` builds, holds the attention kernels,
 runs phases 15 and 16 and stops.  ``python3 chip_smoke.py gqa``
-builds, holds the attention kernels and runs phase 14 alone.  ``python3 chip_smoke.py profile`` serves each of
+builds, holds the attention kernels and runs phase 14 alone.  ``python3
+chip_smoke.py paper`` builds, holds K1-K4 and runs the paper phase
+(phase 6's second half) alone.  ``python3 chip_smoke.py profile`` serves each of
 the four models and prints the device time of one prefill and of one
 decode step (profiler, two runs each) and the wall of each, of the eager
 loop and, where the launcher has step graphs, of their replays, and
@@ -259,6 +274,10 @@ MIN_ARGMAX_AGREEMENT = 0.9                  # bf16 near-ties may flip a few
 FANOUT_REQUESTS, FANOUT_WARM = 64, 8       # the wave; the launcher's warm-up
 FANOUT_EAGER = 16                           # the eager wave beside it
 FIG7_REQUESTS = 12                          # the Fig. 7 twin's requests
+# the paper phase: Fig. 6 at RCV1's feature count (data/sparse.py imitates
+# RCV1) and 4,096 examples; Fig. 8 at n 2,048
+FIG6_FEATURES, FIG6_EXAMPLES, FIG6_WORKERS, FIG6_EPOCHS = 47_236, 4_096, 8, 2
+FIG8_N, FIG8_SPLITS = 2048, (2, 4)
 STATS_NUMEL = 151_936                       # serve/stats: the vocabulary
 SP_BIG = 16 << 20                           # the state-push timing's 16 Mi
 INT8_STEP = 1.01 / 127                      # int8 bound per unit push
@@ -1559,6 +1578,180 @@ def phase_device_plane() -> dict:
     check_bound("global value vs init + update", host,
                 torch.from_numpy(init) + upd.cpu(), bound)
     return launches
+
+
+def _wire_encodes(spans) -> tuple:
+    """The int8 encodes a traced run made: wire.push spans of the int8
+    wire (fenced ones too: they encode before the fence) and wire.pull
+    spans that re-encoded a delta as int8."""
+    pushes = sum(1 for x in spans
+                 if x.name == "wire.push" and x.tags.get("wire") == "int8")
+    pulls = sum(1 for x in spans
+                if x.name == "wire.pull" and x.tags.get("wire") == "int8")
+    return pushes, pulls
+
+
+def _add(total: dict, part: dict) -> None:
+    for k, n in part.items():
+        total[k] = total.get(k, 0) + n
+
+
+def phase_paper() -> dict:
+    """The paper's other experiments through their twins on the card
+    (``examples/*_torch.py``, ``benchmarks/bench_*_torch.py``), each with
+    the counters zeroed just before it and read just after; returns the
+    kernel launches of the phase, summed."""
+    import numpy as np
+    import torch
+    from repro_torch import telemetry
+    from repro_torch.data import make_sparse_dataset
+    sys.path.insert(0, str(ROOT / "examples"))
+    sys.path.insert(0, str(ROOT))
+    import matmul_chained_torch
+    import quickstart_torch
+    import sgd_hogwild_torch
+    from benchmarks import (bench_coldstart_torch, bench_dispatch_torch,
+                            bench_micro_torch)
+    t_phase = time.perf_counter()
+    total = {}
+    log("paper: the quickstart twin, two hosts, 8 chained workers")
+    reset_launches()
+    r = quickstart_torch.main([])
+    want = np.zeros(8, np.float32)
+    for i in range(8):
+        want[i % 8] += i
+    log(f"  quickstart: rc {r['rc']}, accumulated {r['final'].tolist()}, "
+        f"transfer {r['transfer_bytes']} B")
+    if r["rc"] != 0 or not np.array_equal(r["final"], want):
+        raise AssertionError(f"quickstart value {r['final']}, want {want}")
+    _add(total, read_launches())
+
+    for splits in FIG8_SPLITS:
+        reset_launches()
+        r = matmul_chained_torch.main(["--n", str(FIG8_N),
+                                       "--splits", str(splits)])
+        log(f"  matmul n {FIG8_N} splits {splits}: rel-err "
+            f"{r['rel_err']:.3e} (hold < 1e-5), wall {r['wall_s']:.3f}s, "
+            f"transfer {r['transfer_bytes']} B")
+        if not r["rel_err"] < 1e-5:
+            raise AssertionError(f"matmul rel-err {r['rel_err']}")
+        _add(total, read_launches())
+
+    log(f"paper: Fig. 6 twin, {FIG6_FEATURES} features x {FIG6_EXAMPLES} "
+        f"examples, {FIG6_WORKERS} workers x "
+        f"{FIG6_EPOCHS} epochs, traced for the int8 encodes")
+    t0 = time.perf_counter()
+    X, y, _ = make_sparse_dataset(FIG6_FEATURES, FIG6_EXAMPLES, density=0.1,
+                                  seed=0)
+    log(f"  dataset in {time.perf_counter() - t0:.1f}s")
+    tel = telemetry.enable()
+    try:
+        for wire in ("exact", "int8"):
+            by = {}
+            for mode in ("faaslet", "container"):
+                reset_launches()
+                tel.drain()
+                t0 = time.perf_counter()
+                r = sgd_hogwild_torch.run_mode(
+                    mode, X, y, FIG6_WORKERS, FIG6_EPOCHS, 2, wire=wire,
+                    device="cuda")
+                torch.cuda.synchronize()
+                got = read_launches()
+                pushes, pulls = _wire_encodes(tel.drain())
+                k1 = got["state_push.quantize_delta"]
+                log(f"  [{mode:9s} {wire:5s}] run_mode "
+                    f"{time.perf_counter() - t0:.1f}s, wall {r['wall_s']:.3f}s "
+                    f"transfer {r['transfer_mb']:.6f}MB billable "
+                    f"{r['billable_gbs']:.6e}GB-s hinge {r['hinge']:.4f} "
+                    f"acc {r['acc']:.4f}; K1 {k1} launches, int8 encodes "
+                    f"{pushes} pushed + {pulls} pulled")
+                want_pushes = FIG6_WORKERS * FIG6_EPOCHS if wire == "int8" \
+                    else 0
+                if pushes != want_pushes or k1 != pushes + pulls:
+                    raise AssertionError(
+                        f"Fig. 6 {mode} {wire}: K1 {k1}, int8 pushes "
+                        f"{pushes} (want {want_pushes}), pulls {pulls}")
+                if not r["acc"] > 0.5:
+                    raise AssertionError(f"Fig. 6 {mode} {wire}: accuracy "
+                                         f"{r['acc']}")
+                by[mode] = r
+                _add(total, got)
+            f, c = by["faaslet"], by["container"]
+            log(f"  {wire}: container/faaslet transfer "
+                f"{c['transfer_mb'] / f['transfer_mb']:.2f}x, billable "
+                f"{c['billable_gbs'] / f['billable_gbs']:.1f}x, wall "
+                f"{c['wall_s'] / f['wall_s']:.2f}x")
+            if not (c["transfer_mb"] > f["transfer_mb"]
+                    and c["billable_gbs"] > f["billable_gbs"]):
+                raise AssertionError(f"Fig. 6 {wire}: no contrast")
+    finally:
+        telemetry.disable()
+    for wire in ("exact", "int8"):
+        reset_launches()
+        t0 = time.perf_counter()
+        card = sgd_hogwild_torch.run_mode("faaslet", X, y, 1, FIG6_EPOCHS, 2,
+                                          wire=wire, device="cuda")
+        got = read_launches()
+        cpu = sgd_hogwild_torch.run_mode("faaslet", X, y, 1, FIG6_EPOCHS, 2,
+                                         wire=wire, device="cpu")
+        same = np.array_equal(card["weights"], cpu["weights"])
+        log(f"  one worker, {wire}: weights on the card "
+            f"{'equal' if same else 'DIFFER FROM'} the CPU run's bitwise; "
+            f"hinge {card['hinge']:.6f} · {cpu['hinge']:.6f}, transfer "
+            f"{card['transfer_mb']:.6f} · {cpu['transfer_mb']:.6f}MB; K1 "
+            f"{got['state_push.quantize_delta']} launches; both runs in "
+            f"{time.perf_counter() - t0:.1f}s")
+        if not same:
+            raise AssertionError(f"Fig. 6 one worker {wire}: the card's "
+                                 f"weights differ from the CPU's")
+        _add(total, got)
+    del X, y
+
+    log("paper: Fig. 9 twin (CUDA events, kernel vs plain vs library)")
+    reset_launches()
+    micro = bench_micro_torch.main([])
+    got = {k: n for k, n in read_launches().items() if n}
+    log(f"  launches {got} (the twin's count {micro.launches})")
+    if got != micro.launches:
+        raise AssertionError(f"Fig. 9 launches {got}, want {micro.launches}")
+    _add(total, got)
+
+    log("paper: Tab. 3 / Fig. 10 twin (bench_coldstart_torch.main)")
+    reset_launches()
+    cs = bench_coldstart_torch.main("cuda")
+    got = read_launches()
+    want_k1 = {("push", "exact"): 0, ("push", "int8"): 11,
+               ("pull", "full"): 11, ("pull", "exact"): 11,
+               ("pull", "int8"): 22}
+    for (sec, mode), n in want_k1.items():
+        seen = cs[sec][mode]["launches"]
+        log(f"  {sec} {mode}: K1 {seen['quantize_delta']} (want {n}), K2 "
+            f"{seen['apply_delta']}")
+        if seen["quantize_delta"] != n:
+            raise AssertionError(f"coldstart {sec} {mode}: K1 {seen}")
+    seen = cs["pull"]["broadcast"]["launches"]
+    log(f"  pull broadcast: K1 {seen['quantize_delta']} (11 pushes and one "
+        f"re-encode per refresh that ran before its broadcast landed), K2 "
+        f"{seen['apply_delta']}; pull bytes per refresh "
+        f"{cs['pull']['broadcast']['pull_bytes_per_refresh']:.0f}")
+    if not 11 <= seen["quantize_delta"] <= 22:
+        raise AssertionError(f"coldstart pull broadcast: K1 {seen}")
+    _add(total, got)
+
+    log("paper: dispatch twin (the floors reported, not held: they measure "
+        "the host's threads)")
+    reset_launches()
+    rs = bench_dispatch_torch.main(200, "cuda", hold_floors=False)
+    met = bench_dispatch_torch.floors(rs[0])
+    log(f"  faaslet: p99 {rs[0]['p99_ms']:.3f}ms (floor < 10: "
+        f"{'met' if met['p99'] else 'MISSED'}), batch "
+        f"{rs[0]['speedup']:.2f}x serial (floor >= 5: "
+        f"{'met' if met['batch'] else 'MISSED'}); container p99 "
+        f"{rs[1]['p99_ms']:.3f}ms, batch {rs[1]['speedup']:.2f}x")
+    _add(total, read_launches())
+    log(f"  paper phase in {time.perf_counter() - t_phase:.1f}s; launches "
+        f"{ {k: n for k, n in total.items() if n} }")
+    return total
 
 
 def phase_timing_state_push(launches, errs) -> list:
@@ -3194,9 +3387,10 @@ def main(argv) -> int:
     sys.path.insert(0, str(SRC))
     mode = argv[0] if argv else None
     if mode not in (None, "parity", "flash", "gmm", "decode", "ssd",
-                    "profile", "fanout", "train", "gqa") or len(argv) > 1:
+                    "profile", "fanout", "train", "gqa", "paper") or \
+            len(argv) > 1:
         print(f"chip_smoke: arguments {argv}: none, or one of parity, flash, "
-              f"gmm, decode, ssd, profile, fanout, train, gqa",
+              f"gmm, decode, ssd, profile, fanout, train, gqa, paper",
               file=sys.stderr)
         return 2
     parity_only = mode == "parity"        # a new kernel's first, short run
@@ -3258,6 +3452,11 @@ def main(argv) -> int:
         log(smi)
         return 0
     errs.update(phase_parity_state_push())
+    if mode == "paper":                   # the paper's experiments alone
+        phase_paper()
+        log(f"chip_smoke: {time.perf_counter() - t0:.1f}s")
+        log(smi)
+        return 0
     errs.update(phase_parity_gmm())
     errs.update(phase_parity_ssd())
     if parity_only:
@@ -3269,13 +3468,17 @@ def main(argv) -> int:
     _, ssm_fanout_launches = phase_fanout(SSM_ARCHS[0])
     phase_fig7()
     plane_launches = phase_device_plane()
-    # each kernel's launches from the run of its path: K5/K6 the serve
-    # loop, K1 the fan-out, K2 the device plane; K3 (ops.push) and K4 (the
-    # fp8 wire tier, which needs ml_dtypes) are on no runtime path
-    launches["state_push.quantize_delta"] = \
-        fanout_launches["state_push.quantize_delta"]
-    launches["state_push.apply_delta"] = \
-        plane_launches["state_push.apply_delta"]
+    paper_launches = phase_paper()
+    # each kernel's launches from the runs of its paths: K5/K6 the serve
+    # loop, K1 the fan-out and the paper phase, K2 the device plane and
+    # the paper phase (its Fig. 9 twin), K3 the Fig. 9 twin alone; K4 (the
+    # fp8 wire tier, which needs ml_dtypes) is on no path
+    for key, parts in (("state_push.quantize_delta", (fanout_launches,
+                                                      paper_launches)),
+                       ("state_push.apply_delta", (plane_launches,
+                                                   paper_launches)),
+                       ("state_push.push", (paper_launches,))):
+        launches[key] = sum(p.get(key, 0) for p in parts)
     rows = phase_timing(res, launches, errs)
     rows += phase_timing_fanout(fanout_launches, ssm_fanout_launches, errs)
     rows += phase_timing_state_push(launches, errs)

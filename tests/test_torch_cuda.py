@@ -15,10 +15,17 @@ reference's ssd tolerance) and 3e-2 with bf16 operands or the models' own
 decays, at mamba2-130m's and zamba2-1.2b's prefill shapes and at the
 ragged, short, long and grouped cases, and under autograd
 (``SSDScanFn``: K8's forward, the plain chunked scan's backward) at the
-same tolerances.  This file imports no JAX: the
+same tolerances.  The twins of the paper's experiments: Fig. 6 with one
+worker trains the same weights on the card as on the CPU bitwise, on both
+wires, and the Fig. 9 twin's rows hold and count their launches.  This
+file imports no JAX: the
 machine with the card has none.  Run it there with
 ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``.
 """
+import importlib
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -1320,3 +1327,53 @@ def test_checkpoint_round_trip_on_card(card, tmp_path):
         assert a.device.type == "cuda" and torch.equal(a, b)
     for a, b in zip(gstate.momentum.parameters(), state.momentum.parameters()):
         assert torch.equal(a, b)
+
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+def _paper_twin(name: str):
+    """An example or benchmark twin of the paper's experiments, by module
+    name (``examples/`` and the repository root on the path)."""
+    for d in (REPO / "examples", REPO):
+        if str(d) not in sys.path:
+            sys.path.insert(0, str(d))
+    return importlib.import_module(name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wire", ["exact", "int8"])
+def test_fig6_one_worker_on_the_card_equals_the_cpu(card, wire):
+    """The Fig. 6 twin with one worker: the weights trained through the
+    card's runtime equal the CPU run's bitwise on both wires (K1 is bitwise
+    the host codec), with the same transfer; each int8 push launches K1."""
+    from repro_torch.data import make_sparse_dataset
+    twin = _paper_twin("sgd_hogwild_torch")
+    X, y, _ = make_sparse_dataset(2048, 256, density=0.1, seed=0)
+    k1 = sp_ops.LAUNCHES["quantize_delta"].value
+    got = twin.run_mode("faaslet", X, y, 1, 2, 2, wire=wire, device="cuda")
+    launched = sp_ops.LAUNCHES["quantize_delta"].value - k1
+    want = twin.run_mode("faaslet", X, y, 1, 2, 2, wire=wire, device="cpu")
+    np.testing.assert_array_equal(got["weights"], want["weights"])
+    assert got["transfer_mb"] == want["transfer_mb"]
+    assert launched >= (2 if wire == "int8" else 0)
+
+
+@pytest.mark.cuda
+def test_fig9_twin_rows_hold_and_count_their_launches(card):
+    """Every kernel row of the Fig. 9 twin runs its kernel on the card,
+    held against its plain version inside the twin, and the launches it
+    reports are the counters' exactly."""
+    micro = _paper_twin("benchmarks.bench_micro_torch")
+    counters = {"flash_attention": flash_ops.LAUNCHES,
+                "decode_attention": decode_ops.LAUNCHES,
+                "ssd_scan": ssd_ops.LAUNCHES, "moe_gmm": gmm_ops.LAUNCHES,
+                **{f"state_push.{k}": c for k, c in sp_ops.LAUNCHES.items()}}
+    before = {k: c.value for k, c in counters.items()}
+    m = micro.main(["--device", "cuda"])
+    got = {k: c.value - before[k] for k, c in counters.items()
+           if c.value != before[k]}
+    assert got == m.launches
+    kernels = [r for r in m.rows if "kernel_us" in r]
+    assert len(kernels) == 7 and set(got) == {r["counter"] for r in kernels}
+    assert all(r["kernel_us"] > 0 and r["plain_us"] > 0 for r in kernels)

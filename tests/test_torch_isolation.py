@@ -1,6 +1,7 @@
 """The port stands alone: it imports nothing of JAX or of ``repro``, and its
 entry point runs on the card unless the CPU is asked for."""
 import ast
+import importlib
 import os
 import subprocess
 import sys
@@ -16,9 +17,12 @@ from repro_torch.state.kv import GlobalTier
 
 REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + \
-    [REPO / "chip_smoke.py", REPO / "examples" / "inference_serving_torch.py",
-     REPO / "examples" / "train_lm_torch.py",
-     REPO / "benchmarks" / "bench_inference_torch.py"]
+    [REPO / "chip_smoke.py"] + sorted(REPO.glob("examples/*_torch.py")) + \
+    sorted(REPO.glob("benchmarks/*_torch.py"))
+TWINS = ["quickstart_torch", "matmul_chained_torch", "sgd_hogwild_torch",
+         "benchmarks.bench_sgd_training_torch", "benchmarks.bench_matmul_torch",
+         "benchmarks.bench_dispatch_torch", "benchmarks.bench_micro_torch",
+         "benchmarks.bench_coldstart_torch", "benchmarks.run_torch"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -52,6 +56,67 @@ def test_importing_the_launcher_loads_no_jax_or_repro():
     r = subprocess.run([sys.executable, "-c", code], env=env,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
+
+
+def test_the_paper_twins_are_scanned():
+    names = {p.name for p in PORT_FILES}
+    assert {"quickstart_torch.py", "matmul_chained_torch.py",
+            "sgd_hogwild_torch.py", "bench_sgd_training_torch.py",
+            "bench_matmul_torch.py", "bench_dispatch_torch.py",
+            "bench_micro_torch.py", "bench_coldstart_torch.py",
+            "run_torch.py", "inference_serving_torch.py", "train_lm_torch.py",
+            "bench_inference_torch.py"} <= names
+
+
+def test_importing_the_paper_twins_loads_no_jax_or_repro():
+    code = ("import sys\n"
+            f"sys.path[:0] = [{str(REPO / 'examples')!r}, {str(REPO)!r}]\n"
+            + "".join(f"import {m}\n" for m in TWINS)
+            + "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro'))\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    r = subprocess.run([sys.executable, "-c", code], env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+
+
+def _twin(name: str):
+    for d in (REPO / "examples", REPO):
+        if str(d) not in sys.path:
+            sys.path.insert(0, str(d))
+    return importlib.import_module(name)
+
+
+NO_CARD_CALLS = {   # twin: how its entry point is called by default
+    "quickstart_torch": lambda m, out: m.main([]),
+    "matmul_chained_torch": lambda m, out: m.main([]),
+    "sgd_hogwild_torch": lambda m, out: m.main([]),
+    "benchmarks.bench_sgd_training_torch": lambda m, out: m.main([]),
+    "benchmarks.bench_matmul_torch": lambda m, out: m.main([]),
+    "benchmarks.bench_dispatch_torch": lambda m, out: m.main(),
+    "benchmarks.bench_micro_torch": lambda m, out: m.main([]),
+    "benchmarks.bench_coldstart_torch": lambda m, out: m.main(out_dir=out),
+    "benchmarks.run_torch": lambda m, out: m.main(["fig8"]),
+}
+
+
+@pytest.mark.parametrize("name", TWINS)
+def test_paper_twins_raise_without_a_card(name, monkeypatch, tmp_path,
+                                          capsys):
+    """Each twin runs on the card by default: without one it raises the
+    runtime's error before any row, and writes nothing."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    mod = _twin(name)
+    try:
+        NO_CARD_CALLS[name](mod, tmp_path)
+    except (RuntimeError, SystemExit) as e:
+        err = str(e) + capsys.readouterr().err
+    else:
+        pytest.fail(f"{name} ran without a card")
+    assert "no CUDA device" in err
+    out = capsys.readouterr().out.replace("name,us_per_call,derived", "")
+    assert "," not in out and not any(tmp_path.iterdir())
 
 
 def test_serve_raises_without_a_card(monkeypatch):
