@@ -186,7 +186,25 @@ Phases, each fatal on failure:
    per Mamba layer and step (48 and 76) and, for zamba2, K5 twice per
    shared-block application (14); the same reports; K8 timed at the
    training shape, the plain SSD backward's time per layer, and zamba2's
-   K5 at its training forward beside SDPA.
+   K5 at its training forward beside SDPA;
+17. families, whisper-tiny (encoder/decoder: 4 + 4 layers, H 6, D 64,
+   cross-attention over 1,500 frames) and then internvl2-2b (VLM: 24
+   layers, H 16 over K 8, D 128, 256 patch embeddings ahead of the
+   prompt) at full width, bf16, random weights from the seed, batch 4,
+   prompt 512, 32 new tokens, with the frames or patch embeddings the
+   launcher draws after the prompt, one model on the card at a time, as
+   phase 14: the parameters counted; K5 12 and 24 times a prefill
+   (whisper: 4 encoder layers without a mask over 1,500 x 1,500, 4 causal
+   decoder self-attentions, 4 cross-attentions of 512 queries over 1,500
+   frames) and K6 8 and 24 times a decode step (whisper: self-attention
+   over the 544-position cache and cross-attention over all 1,500 frames
+   in each decoder layer), exact in all and by shape; the graphed loop
+   bitwise against the eager loop; the teacher-forced logits against the
+   plain path (held for whisper-tiny, reported for internvl2-2b, as the
+   GQA decoders'; the argmax held for both); every K5 and K6 sublayer call
+   repeated on the plain path (3e-2); K5 and K6 timed at every one of
+   these shapes beside SDPA; the warm decode loop; the weights widened to
+   f32, as phase 14.
 
 Phase 2 also holds K8 against its plain version (and the sequential
 oracle) at both models' prefill shapes, in f32 at the reference's 1e-4
@@ -223,7 +241,8 @@ call launches, and stops; ``python3 chip_smoke.py ssd`` holds K8 at every
 phase-2 case, times it at both SSM prefill shapes with the time of each of
 its kernels, and stops.  ``python3 chip_smoke.py train`` builds, holds the attention kernels,
 runs phases 15 and 16 and stops.  ``python3 chip_smoke.py gqa``
-builds, holds the attention kernels and runs phase 14 alone.  ``python3
+builds, holds the attention kernels and runs phase 14 alone;
+``python3 chip_smoke.py families`` the same for phase 17.  ``python3
 chip_smoke.py paper`` builds, holds K1-K4 and runs the paper phase
 (phase 6's second half) alone.  ``python3 chip_smoke.py profile`` serves each of
 the four models and prints the device time of one prefill and of one
@@ -258,14 +277,19 @@ MOE_ARCH = "deepseek-moe-16b"
 SSM_ARCHS = ("mamba2-130m", "zamba2-1.2b")
 # the grouped-query decoders (qwen3-4b and granite-3-8b share H 32 over K 8)
 GQA_ARCHS = ("qwen3-4b", "granite-3-8b", "starcoder2-7b")
+# the last two families: whisper-tiny's encoder/decoder (4 + 4 layers, H 6,
+# D 64, cross-attention over 1,500 frames) and internvl2-2b's VLM (24
+# layers, H 16 over K 8, D 128, 256 patch embeddings ahead of the prompt)
+FAMILY_ARCHS = ("whisper-tiny", "internvl2-2b")
 # configs whose teacher-forced logits are reported, not held to LOGIT_TOL
 # (every sublayer is held instead, and the logits in f32; see
 # phase_sublayers, phase_ssm_witnesses and phase_f32_witness): their bf16
 # plain path itself lands farther than LOGIT_TOL from the f32 logits
 # (zamba2-1.2b 0.19; the GQA decoders, 32-40 layers deep, 0.054-0.092 on
 # an H100), so the two bf16 paths cannot be held closer than that
+# internvl2-2b (24 layers at d 2048, D 128, G 2) is reported with them
 LOGITS_HELD = {"zamba2-1.2b": False, "qwen3-4b": False, "granite-3-8b": False,
-               "starcoder2-7b": False}
+               "starcoder2-7b": False, "internvl2-2b": False}
 TOL = {"float32": 2e-5, "bfloat16": 3e-2}   # the repo's kernel tolerances
 GMM_TOL = {"float32": 1e-4, "bfloat16": 3e-2}   # the reference's gmm, bf16
 SSD_TOL = {"float32": 1e-4, "bfloat16": 3e-2}   # the reference's ssd, bf16
@@ -304,6 +328,10 @@ FLASH_CASES = [
     (1, 70, 20, 4, 4, 128, False, 0),
     (4, 512, 512, 32, 8, 128, True, 0),      # qwen3-4b's, granite-3-8b's: G 4
     (4, 512, 512, 36, 4, 128, True, 0),      # starcoder2-7b's prefill: G 9
+    (4, 1500, 1500, 6, 6, 64, False, 0),     # whisper-tiny's encoder
+    (4, 512, 512, 6, 6, 64, True, 0),        # whisper-tiny's decoder: H 6
+    (4, 512, 1500, 6, 6, 64, False, 0),      # whisper-tiny's cross-attention
+    (4, 768, 768, 16, 8, 128, True, 0),      # internvl2-2b's prefill: G 2
 ]
 # the bf16 parity case (causal, Sq = Sk = S, no offset), keyed (B, S, H,
 # K, D), whose error the timing rows of K5 at that shape report
@@ -315,6 +343,16 @@ FLASH_ROWS = {
     (4, 512, 32, 8, 128): tuple(f"flash_attention[{a}]"
                                 for a in GQA_ARCHS[:2]),
     (4, 512, 36, 4, 128): (f"flash_attention[{GQA_ARCHS[2]}]",),
+    (4, 512, 6, 6, 64): (f"flash_attention[{FAMILY_ARCHS[0]}]",),
+    (4, 768, 16, 8, 128): (f"flash_attention[{FAMILY_ARCHS[1]}]",),
+}
+# the bf16 parity cases without a causal mask, keyed (B, Sq, Sk, H, K, D),
+# whose error the timing rows of K5 at that shape report
+FLASH_FULL_ROWS = {
+    (4, 1500, 1500, 6, 6, 64): (f"flash_attention[{FAMILY_ARCHS[0]} "
+                                f"encoder]",),
+    (4, 512, 1500, 6, 6, 64): (f"flash_attention[{FAMILY_ARCHS[0]} "
+                               f"cross]",),
 }
 DECODE_CASES = [
     # B, S, H, K, D, lengths
@@ -329,6 +367,9 @@ DECODE_CASES = [
     (2, 777, 36, 4, 128, (777, 300)),            # G=9: two head groups
     (4, 544, 32, 8, 128, (513, 530, 543, 544)),  # qwen3-4b's, granite-3-8b's
     (4, 544, 36, 4, 128, (513, 530, 543, 544)),  # starcoder2-7b's: G 9
+    (4, 544, 6, 6, 64, (513, 530, 543, 544)),    # whisper-tiny's self-attention
+    (4, 1500, 6, 6, 64, (1500,) * 4),            # its cross-attention: full
+    (4, 800, 16, 8, 128, (769, 780, 799, 800)),  # internvl2-2b's: G 2, D 128
 ]
 # the bf16 parity case, keyed (B, S, H, K, D), whose error the timing rows
 # of K6 at that shape report
@@ -339,6 +380,9 @@ DECODE_ROWS = {
     (4, 544, 32, 8, 128): tuple(f"decode_attention[{a}]"
                                 for a in GQA_ARCHS[:2]),
     (4, 544, 36, 4, 128): (f"decode_attention[{GQA_ARCHS[2]}]",),
+    (4, 544, 6, 6, 64): (f"decode_attention[{FAMILY_ARCHS[0]}]",),
+    (4, 1500, 6, 6, 64): (f"decode_attention[{FAMILY_ARCHS[0]} cross]",),
+    (4, 800, 16, 8, 128): (f"decode_attention[{FAMILY_ARCHS[1]}]",),
 }
 
 
@@ -624,6 +668,9 @@ def phase_parity() -> dict:
                               got, want, tol)
             if dtype == torch.bfloat16 and causal and off == 0 and Sq == Sk:
                 for name in FLASH_ROWS.get((B, Sq, H, K, D), ()):
+                    errs[name] = err
+            if dtype == torch.bfloat16 and not causal:
+                for name in FLASH_FULL_ROWS.get((B, Sq, Sk, H, K, D), ()):
                     errs[name] = err
         for (B, S, H, K, D, lens) in DECODE_CASES:
             q = torch.randn(B, H, D, generator=g, device=dev).to(dtype)
@@ -1037,31 +1084,35 @@ def _library_times(kernel, q, k, v, **kw) -> tuple:
         f"{sdpa_kernels(rep)}")
 
 
-def _flash_row(name, B, S, H, K, D, launches, errs, g) -> tuple:
-    """K5 at one layer's prefill call (bf16, causal, Sq = Sk = S): its
-    kernels-line row (device time from the profiler, plain version, SDPA,
-    bound), its back-to-back call time, the method and a note on SDPA
-    (``_library_times``)."""
+def _flash_row(name, B, S, H, K, D, launches, errs, g, Sk=None,
+               causal=True) -> tuple:
+    """K5 at one layer's prefill call (bf16; causal with Sq = Sk = S, or
+    without a mask over ``Sk`` keys): its kernels-line row (device time
+    from the profiler, plain version, SDPA, bound), its back-to-back call
+    time, the method and a note on SDPA (``_library_times``)."""
     import torch
     from repro_torch.kernels.flash_attention import (attention_ref,
                                                      flash_attention)
     bf16, dev = torch.bfloat16, "cuda"
+    Sk = S if Sk is None else Sk
     q = torch.randn(B, S, H, D, generator=g, device=dev).to(bf16)
-    k = torch.randn(B, S, K, D, generator=g, device=dev).to(bf16)
-    v = torch.randn(B, S, K, D, generator=g, device=dev).to(bf16)
+    k = torch.randn(B, Sk, K, D, generator=g, device=dev).to(bf16)
+    v = torch.randn(B, Sk, K, D, generator=g, device=dev).to(bf16)
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
-    flops = 4 * D * B * H * S * (S + 1) // 2            # causal pairs only
-    kernel = lambda: flash_attention(q, k, v, causal=True)
+    pairs = S * (S + 1) // 2 if causal else S * Sk     # causal pairs only
+    flops = 4 * D * B * H * pairs
+    kernel = lambda: flash_attention(q, k, v, causal=causal)
     back_to_back = call_ms(kernel)
     queued, how = queued_ms(kernel)
     log(f"  {name}: {queued * 1e3:.2f}us per call by CUDA events, {how}")
     k_ms, lib_ms, how, note = _library_times(kernel, qt, kt, vt,
-                                             is_causal=True)
+                                             is_causal=causal)
     row = _row(
         name, "src/repro_torch/kernels/csrc/flash_attention.cu",
         "src/repro/kernels/flash_attention/kernel.py:84", launches, errs,
-        k_ms, device_ms(lambda: attention_ref(q, k, v, causal=True), iters=5),
+        k_ms, device_ms(lambda: attention_ref(q, k, v, causal=causal),
+                        iters=5),
         lib_ms, nbytes, flops)
     return row, back_to_back, how, note
 
@@ -1091,16 +1142,17 @@ def phase_timing_flash(res, launches: int, errs) -> list:
     return [row]
 
 
-def _decode_operands(g, B, S, H, K, D):
+def _decode_operands(g, B, S, H, K, D, n=None):
     """The last decode step of one layer: bf16 q, a cache of S positions
-    with S - 1 valid in every row, the lengths, and SDPA's operands (the
-    heads' axis second, a boolean mask)."""
+    with ``n`` (S - 1 unless given) valid in every row, the lengths, and
+    SDPA's operands (the heads' axis second, a boolean mask)."""
     import torch
     bf16, dev = torch.bfloat16, "cuda"
     q = torch.randn(B, H, D, generator=g, device=dev).to(bf16)
     kc = torch.randn(B, S, K, D, generator=g, device=dev).to(bf16)
     vc = torch.randn(B, S, K, D, generator=g, device=dev).to(bf16)
-    lengths = torch.full((B,), S - 1, dtype=torch.int32, device=dev)
+    lengths = torch.full((B,), S - 1 if n is None else n, dtype=torch.int32,
+                         device=dev)
     mask = (torch.arange(S, device=dev)[None, :] < lengths[:, None])[:, None, None]
     sdpa = (q[:, :, None], kc.transpose(1, 2).contiguous(),
             vc.transpose(1, 2).contiguous(), mask)
@@ -1126,16 +1178,18 @@ def one_decode_kernel(kernel) -> str:
             f"the profiler, 1 node in a CUDA graph")
 
 
-def _decode_row(name, B, S, H, K, D, launches, errs, g) -> tuple:
+def _decode_row(name, B, S, H, K, D, launches, errs, g, full=False) -> tuple:
     """K6 at one layer's last decode step (bf16, a cache of S positions,
-    S - 1 valid): its kernels-line row (kernel and SDPA timed by one
-    method, plain version, bound), its back-to-back call time, the method,
-    the kernels one call launched (``one_decode_kernel``) and a note on
-    SDPA (``_library_times``)."""
+    S - 1 valid, or all S with ``full``, as a cross-attention cache): its
+    kernels-line row (kernel and SDPA timed by one method, plain version,
+    bound), its back-to-back call time, the method, the kernels one call
+    launched (``one_decode_kernel``) and a note on SDPA
+    (``_library_times``)."""
     from repro_torch.kernels.decode_attention import (decode_attention,
                                                       decode_attention_ref)
-    q, kc, vc, lengths, (qt, kt, vt, mask) = _decode_operands(g, B, S, H, K, D)
-    n = S - 1
+    n = S if full else S - 1
+    q, kc, vc, lengths, (qt, kt, vt, mask) = _decode_operands(g, B, S, H, K,
+                                                              D, n)
     nbytes = 2 * (q.numel() + 2 * B * n * K * D + q.numel())
     flops = 4 * D * B * H * n
     kernel = lambda: decode_attention(q, kc, vc, lengths)
@@ -1949,14 +2003,22 @@ def phase_moe_serve() -> tuple:
     return res, launches
 
 
+def cache_len(cfg) -> int:
+    """The serving cache's positions: a VLM's patch embeddings, the
+    prompt and the new tokens."""
+    from repro_torch.models import build_model
+    return build_model(cfg).prefix_len + PROMPT + NEW_TOKENS
+
+
 def _teacher_run(res, model, force=None) -> tuple:
-    """``model``'s prefill and decode on the main-path run's prompt and
-    generated tokens (teacher forcing): (logits per step, router calls)."""
+    """``model``'s prefill and decode on the main-path run's prompt (and
+    extra input) and generated tokens (teacher forcing): (logits per step,
+    router calls)."""
     import torch
     params, tokens, gen = res["params"], res["tokens"], res["gen"]
-    cache = model.init_cache(BATCH, PROMPT + NEW_TOKENS, "cuda")
+    cache = model.init_cache(BATCH, cache_len(model.cfg), "cuda")
     with torch.no_grad(), RoutingRecorder(force) as rec:
-        lg, cache, n = model.prefill(params, tokens, cache)
+        lg, cache, n = model.prefill(params, tokens, cache, res.get("extra"))
         out = [lg]
         for i in range(NEW_TOKENS - 1):
             idx = torch.full((BATCH,), n + i, dtype=torch.int32, device="cuda")
@@ -1972,15 +2034,23 @@ def _sublayer_run(res) -> dict:
     the plain path on the same input (and a copy of the cache it reads):
     both see the same activations, so the router picks the same experts
     and only the kernels' rounding separates them.  (A Mamba2 decode step,
-    ``mamba_step``, runs no kernel: both paths run the same code.)
+    ``mamba_step``, runs no kernel: both paths run the same code.)  The
+    encoder/decoder's sublayers with a kernel are its encoder's attention,
+    its decoder's self-attention in the prefill and decode and its
+    cross-attention in both (K5 and K6); its MLP runs no kernel.
     Returns {sublayer: (calls, max |diff|, largest excess over
     TOL["bfloat16"] abs + rel)} and the run's logits per step."""
-    from repro_torch.models import ssm_stack
+    from repro_torch.models import encdec, ssm_stack
     from repro_torch.models import transformer as tr
     tol, stats = TOL["bfloat16"], {}
-    orig = {n: getattr(tr, n)
-            for n in ("attn_apply_prefill", "attn_apply_decode", "_ffn")}
-    orig_mamba = ssm_stack.mamba_apply_full
+    patched = [(tr, n) for n in ("attn_apply_prefill", "attn_apply_decode",
+                                 "_ffn")] + \
+        [(encdec, n) for n in ("attn_apply_full", "attn_apply_prefill",
+                               "attn_apply_decode", "cross_attn_apply",
+                               "cross_attn_decode")] + \
+        [(ssm_stack, "mamba_apply_full")]
+    orig = {(m, n): getattr(m, n) for m, n in patched}
+    plain_ec = lambda ec: ec.with_overrides(backend="torch")
 
     def hold(kind, got, want):
         d = (got.float() - want.float()).abs()
@@ -1988,27 +2058,37 @@ def _sublayer_run(res) -> dict:
         stats[kind] = (n + 1, max(err, float(d.max())), max(exc, float(
             (d - tol * (1 + want.float().abs())).max())))
 
-    def attn(name):
+    def attn(mod, name, kind):
+        fn = orig[(mod, name)]
+
         def wrapped(p, cfg, ec, x, ck, cv, *args, **kw):
             ck0, cv0 = ck.clone(), cv.clone()
-            out = orig[name](p, cfg, ec, x, ck, cv, *args, **kw)
-            plain = orig[name](p, cfg, ec.with_overrides(backend="torch"), x,
-                               ck0, cv0, *args, **kw)
-            hold(name, out[0], plain[0])
+            out = fn(p, cfg, ec, x, ck, cv, *args, **kw)
+            plain = fn(p, cfg, plain_ec(ec), x, ck0, cv0, *args, **kw)
+            hold(kind, out[0], plain[0])
+            return out
+        return wrapped
+
+    def same_input(mod, name, kind):
+        fn = orig[(mod, name)]
+
+        def wrapped(p, cfg, ec, *args, **kw):
+            out = fn(p, cfg, ec, *args, **kw)
+            hold(kind, out, fn(p, cfg, plain_ec(ec), *args, **kw))
             return out
         return wrapped
 
     def ffn(lp, cfg, ec, h):
-        out = orig["_ffn"](lp, cfg, ec, h)
+        out = orig[(tr, "_ffn")](lp, cfg, ec, h)
         kind = ("moe" if isinstance(lp, tr.MoEBlock) else "dense mlp") + \
             (" decode" if h.shape[1] == 1 else " prefill")
-        hold(kind, out[0],
-             orig["_ffn"](lp, cfg, ec.with_overrides(backend="torch"), h)[0])
+        hold(kind, out[0], orig[(tr, "_ffn")](lp, cfg, plain_ec(ec), h)[0])
         return out
 
     def mamba(p, cfg, ec, x, **kw):
-        out = orig_mamba(p, cfg, ec, x, **kw)
-        plain = orig_mamba(p, cfg, ec.with_overrides(backend="torch"), x, **kw)
+        fn = orig[(ssm_stack, "mamba_apply_full")]
+        out = fn(p, cfg, ec, x, **kw)
+        plain = fn(p, cfg, plain_ec(ec), x, **kw)
         if kw.get("return_state"):          # (y, (conv tail, SSD state))
             hold("mamba prefill", out[0], plain[0])
             hold("mamba prefill state", out[1][1], plain[1][1])
@@ -2016,16 +2096,26 @@ def _sublayer_run(res) -> dict:
             hold("mamba prefill", out, plain)
         return out
 
-    tr.attn_apply_prefill = attn("attn_apply_prefill")
-    tr.attn_apply_decode = attn("attn_apply_decode")
+    tr.attn_apply_prefill = attn(tr, "attn_apply_prefill",
+                                 "attn_apply_prefill")
+    tr.attn_apply_decode = attn(tr, "attn_apply_decode", "attn_apply_decode")
     tr._ffn = ffn
+    encdec.attn_apply_full = same_input(encdec, "attn_apply_full",
+                                        "encoder attention")
+    encdec.attn_apply_prefill = attn(encdec, "attn_apply_prefill",
+                                     "decoder self-attention prefill")
+    encdec.attn_apply_decode = attn(encdec, "attn_apply_decode",
+                                    "decoder self-attention decode")
+    encdec.cross_attn_apply = same_input(encdec, "cross_attn_apply",
+                                         "cross-attention prefill")
+    encdec.cross_attn_decode = same_input(encdec, "cross_attn_decode",
+                                          "cross-attention decode")
     ssm_stack.mamba_apply_full = mamba
     try:
         logits, _ = _teacher_run(res, res["model"])
     finally:
-        for n, fn in orig.items():
-            setattr(tr, n, fn)
-        ssm_stack.mamba_apply_full = orig_mamba
+        for (m, n), fn in orig.items():
+            setattr(m, n, fn)
     return stats, logits
 
 
@@ -2298,18 +2388,20 @@ def phase_gmm_ab(errs) -> None:
 
 
 def _serve_once(model, params, tokens, decode_ctx=contextlib.nullcontext,
-                prefill_ctx=contextlib.nullcontext, kept=None) -> tuple:
+                prefill_ctx=contextlib.nullcontext, kept=None,
+                extra=None) -> tuple:
     """Prefill + greedy decode of the kernel path, op by op from Python
     (the eager loop): (prefill s, decode s); ``prefill_ctx`` wraps the
     prefill and ``decode_ctx`` the decode loop (a profiler); a list
-    ``kept`` receives every step's logits."""
+    ``kept`` receives every step's logits; ``extra`` is the family's
+    extra input."""
     import torch
     with torch.no_grad(), contextlib.ExitStack() as stack:
-        cache = model.init_cache(BATCH, PROMPT + NEW_TOKENS, "cuda")
+        cache = model.init_cache(BATCH, cache_len(model.cfg), "cuda")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with prefill_ctx():
-            lg, cache, n = model.prefill(params, tokens, cache)
+            lg, cache, n = model.prefill(params, tokens, cache, extra)
             tok = lg.argmax(-1).to(torch.int32)
             torch.cuda.synchronize()
         stack.enter_context(decode_ctx())
@@ -2376,7 +2468,8 @@ def phase_graph_hold(res, record_routes: bool = False):
     kept = []
     with RoutingRecorder() if record_routes else contextlib.nullcontext() \
             as rec:
-        _serve_once(res["model"], res["params"], res["tokens"], kept=kept)
+        _serve_once(res["model"], res["params"], res["tokens"], kept=kept,
+                    extra=res.get("extra"))
     ids = torch.stack([lg.argmax(-1).to(torch.int32) for lg in kept], 1)
     same_ids = torch.equal(ids, res["gen"])
     diff = max(float((a - b).abs().max())
@@ -2415,8 +2508,8 @@ def phase_warm_serve(res, decode_only: bool = False) -> None:
     import torch
     from torch.profiler import ProfilerActivity, profile
     model, params, tokens = res["model"], res["params"], res["tokens"]
-    graphs, name = res["graphs"], res["cfg"].name
-    runs = [_serve_once(model, params, tokens) for _ in range(3)]
+    graphs, name, extra = res["graphs"], res["cfg"].name, res.get("extra")
+    runs = [_serve_once(model, params, tokens, extra=extra) for _ in range(3)]
     g_runs = [graphs.generate(tokens, NEW_TOKENS) for _ in range(3)]
     g_runs = [(g.prefill_s, g.decode_s) for g in g_runs]
     rate = lambda r: BATCH * (NEW_TOKENS - 1) / r[1]
@@ -2432,8 +2525,8 @@ def phase_warm_serve(res, decode_only: bool = False) -> None:
             else f"one prefill + {NEW_TOKENS - 1} decode steps")
     out = {}
     for loop, serve_fn, warm_runs in (
-            ("eager", lambda **kw: _serve_once(model, params, tokens, **kw),
-             runs),
+            ("eager", lambda **kw: _serve_once(model, params, tokens,
+                                               extra=extra, **kw), runs),
             ("graphed", lambda **kw: _serve_graphed(graphs, tokens, **kw),
              g_runs)):
         prof = profile(activities=[ProfilerActivity.CUDA])
@@ -3349,6 +3442,166 @@ def phase_gqa(arch: str, errs) -> list:
     return rows
 
 
+def family_params(cfg) -> int:
+    """The parameters a family-17 model holds: internvl2-2b exactly
+    ``param_count()``; whisper-tiny's count leaves out the learned positions
+    it counts (both packages' are sinusoidal) and adds the output and MLP
+    biases and the encoder's ``ln_post`` that it does not count."""
+    if cfg.family != "encdec":
+        return cfg.param_count()
+    d, mlp = cfg.d_model, cfg.d_ff + cfg.d_model
+    return (cfg.param_count()
+            - (cfg.n_frames + cfg.max_decoder_positions()) * d
+            + cfg.n_enc_layers * (d + mlp) + cfg.n_layers * (2 * d + mlp)
+            + 2 * d)
+
+
+def family_shapes(cfg) -> tuple:
+    """The K5 calls of one prefill and the K6 calls of one decode step, by
+    the wrappers' launch keys ((Sq, Sk, H, K, D, causal) and (S, H, K, D))
+    with their counts.  whisper-tiny: the encoder's self-attention without
+    a mask over the frames, the decoder's causal self-attention and its
+    cross-attention (Sq = the prompt, Sk = the frames) in each layer; each
+    decode step self- and cross-attention (every sequence at all n_frames)
+    in each decoder layer.  internvl2-2b: one causal self-attention per
+    layer over the patches and the prompt; one K6 call per layer and
+    step."""
+    H, K, D, L = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.n_layers
+    S = cache_len(cfg) - NEW_TOKENS                    # prefix + prompt
+    if cfg.family == "encdec":
+        F = cfg.n_frames
+        return ({(F, F, H, K, D, False): cfg.n_enc_layers,
+                 (S, S, H, K, D, True): L, (S, F, H, K, D, False): L},
+                {(cache_len(cfg), H, K, D): L, (F, H, K, D): L})
+    return {(S, S, H, K, D, True): L}, {(cache_len(cfg), H, K, D): L}
+
+
+def phase_family_serve(arch: str) -> tuple:
+    """The launcher's main path on whisper-tiny or internvl2-2b at full
+    width (bf16, random weights from the seed; batch 4, prompt 512, 32 new
+    tokens, with the launcher's frames or patch embeddings), counters
+    zeroed just before: K5 and K6 held exactly, in all and by shape
+    (``family_shapes``), the warm-up's one prefill and one decode step
+    apart; the drawn parameters counted (``family_params``).  Returns the
+    run and the loop's launches by kernel and by shape."""
+    import torch
+    from repro_torch.kernels.decode_attention import ops as decode_ops
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.launch import serve
+    log(f"families: {arch} full width, bf16, batch {BATCH}, prompt {PROMPT}, "
+        f"{NEW_TOKENS} new tokens")
+    reset_launches()
+    res = serve.main(["--arch", arch, "--batch", str(BATCH), "--prompt-len",
+                      str(PROMPT), "--new-tokens", str(NEW_TOKENS),
+                      "--device", "cuda", "--seed", str(SEED)],
+                     keep_logits=True)
+    cfg, graphs = res["cfg"], res["graphs"]
+    prefill, step = family_shapes(cfg)
+    n5, n6 = sum(prefill.values()), sum(step.values())
+    want = {k: 0 for k in launch_counters()}
+    want.update({"flash_attention": n5,
+                 "decode_attention": n6 * (NEW_TOKENS - 1)})
+    launches = split_launches(res, want, warmup_launches(
+        want, {"flash_attention": n5}))
+    by_shape = {}
+    for c, per_call, calls in ((flash_ops.LAUNCHES, prefill, 1),
+                               (decode_ops.LAUNCHES, step, NEW_TOKENS - 1)):
+        warm = graphs.warmup_launches.by_key(c)
+        loop = {k: n - warm.get(k, 0) for k, n in c.by_key().items()}
+        want_loop = {k: n * calls for k, n in per_call.items()}
+        log(f"  launches by shape {loop} (expected {want_loop}); of the "
+            f"warm-up {warm} (expected {per_call})")
+        if loop != want_loop or warm != per_call:
+            raise AssertionError(f"launches by shape {loop}, warm-up {warm}")
+        by_shape.update(loop)
+    extra = res["extra"]
+    want_extra = res["model"].extra_shape(BATCH)
+    if tuple(extra.shape) != want_extra or extra.dtype != torch.bfloat16:
+        raise AssertionError(f"extra input {tuple(extra.shape)} "
+                             f"{extra.dtype}, expected {want_extra} bf16")
+    gen, logits = res["gen"], res["logits"]
+    if tuple(gen.shape) != (BATCH, NEW_TOKENS) or len(logits) != NEW_TOKENS:
+        raise AssertionError(f"generated {tuple(gen.shape)}, "
+                             f"{len(logits)} logits")
+    for i, lg in enumerate(logits):
+        if tuple(lg.shape) != (BATCH, cfg.vocab_size) or \
+                not bool(torch.isfinite(lg).all()):
+            raise AssertionError(f"step {i}: bad logits {tuple(lg.shape)}")
+    if not bool(((gen >= 0) & (gen < cfg.vocab_size)).all()):
+        raise AssertionError("generated ids out of the vocabulary")
+    n_params = sum(p.numel() for p in res["params"].parameters())
+    if n_params != family_params(cfg) or \
+            res["params"].embed.dtype != torch.bfloat16:
+        raise AssertionError(f"{n_params} parameters, expected "
+                             f"{family_params(cfg)}, or not bf16")
+    log(f"  {n_params / 1e6:.1f}M parameters "
+        f"({torch.cuda.memory_allocated() / 1e9:.2f} GB on the card); "
+        f"prefill {res['prefill_s'] * 1e3:.2f}ms, decode "
+        f"{res['decode_s'] * 1e3:.2f}ms (first run: "
+        f"{BATCH * (NEW_TOKENS - 1) / res['decode_s']:.1f} tok/s)")
+    return res, launches, by_shape
+
+
+def phase_timing_family(res, by_shape, errs) -> list:
+    """K5 at every prefill shape and K6 at every decode shape of a family-17
+    model, beside SDPA, each row with its launches from the main path."""
+    import torch
+    cfg = res["cfg"]
+    prefill, step = family_shapes(cfg)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 17)
+    rows = []
+    for (Sq, Sk, H, K, D, causal) in prefill:
+        part = ("" if causal else " encoder" if Sq == Sk else " cross")
+        name = f"flash_attention[{cfg.name}{part}]"
+        row, back_to_back, how, note = _flash_row(
+            name, BATCH, Sq, H, K, D,
+            {name: by_shape[(Sq, Sk, H, K, D, causal)]}, errs, g, Sk=Sk,
+            causal=causal)
+        _log_flash_row(row, back_to_back, how, f"{cfg.name}'s{part or ''} "
+                       f"prefill (B {BATCH} Sq {Sq} Sk {Sk} H {H} K {K} D {D}"
+                       f"{'' if causal else ', no mask'})", note)
+        rows.append(row)
+    for (S, H, K, D) in step:
+        full = S == cfg.n_frames and cfg.family == "encdec"
+        name = f"decode_attention[{cfg.name}{' cross' if full else ''}]"
+        row, back_to_back, how, per_call, note = _decode_row(
+            name, BATCH, S, H, K, D, {name: by_shape[(S, H, K, D)]}, errs, g,
+            full=full)
+        log(f"timing, K6 at {cfg.name}'s last decode step{' (cross)' if full else ''} "
+            f"(B {BATCH} S {S} H {H} K {K} D {D}, {S if full else S - 1} "
+            f"valid): {row['ms'] * 1e3:.2f}us device, "
+            f"{back_to_back * 1e3:.1f}us back-to-back, bound "
+            f"{row['bound_ms'] * 1e3:.2f}us ({row['bound_by']}), plain "
+            f"{row['plain_ms'] * 1e3:.1f}us, library "
+            f"{row['library_ms'] * 1e3:.2f}us (SDPA, masked; kernel and SDPA "
+            f"by the {how}), launches {row['launches']}; kernels per call: "
+            f"{per_call}{note}")
+        rows.append(row)
+    return rows
+
+
+def phase_family(arch: str, errs) -> list:
+    """Phase 17 for whisper-tiny or internvl2-2b: its main path with exact
+    launch counts, the graphed loop against the eager loop, the logits
+    against the plain path (held, or reported per LOGITS_HELD), every K5
+    and K6 call sublayer by sublayer, K5 and K6 at its shapes beside SDPA,
+    the warm loop, the weights widened to f32; then the model leaves the
+    card.  Returns its timing rows."""
+    t0 = time.perf_counter()
+    res, _, by_shape = phase_family_serve(arch)
+    phase_graph_hold(res)
+    plain_logits = phase_reference(res)
+    phase_sublayers(res)
+    rows = phase_timing_family(res, by_shape, errs)
+    phase_warm_serve(res, decode_only=True)
+    close_graphs(res)
+    phase_f32_witness(res, plain_logits)
+    del plain_logits
+    free_model(res)
+    log(f"families {arch}: {time.perf_counter() - t0:.1f}s")
+    return rows
+
+
 def phase_training(arch: str, errs, smi: str) -> list:
     """The training phase of one architecture: the kernels' training
     parity at its shapes, the kernel-path holds, the main path's run and
@@ -3387,11 +3640,11 @@ def main(argv) -> int:
     sys.path.insert(0, str(SRC))
     mode = argv[0] if argv else None
     if mode not in (None, "parity", "flash", "gmm", "decode", "ssd",
-                    "profile", "fanout", "train", "gqa", "paper") or \
-            len(argv) > 1:
+                    "profile", "fanout", "train", "gqa", "paper",
+                    "families") or len(argv) > 1:
         print(f"chip_smoke: arguments {argv}: none, or one of parity, flash, "
-              f"gmm, decode, ssd, profile, fanout, train, gqa, paper",
-              file=sys.stderr)
+              f"gmm, decode, ssd, profile, fanout, train, gqa, paper, "
+              f"families", file=sys.stderr)
         return 2
     parity_only = mode == "parity"        # a new kernel's first, short run
     flash_only = mode == "flash"          # K5 alone: A/B of its designs
@@ -3429,6 +3682,12 @@ def main(argv) -> int:
         return 0
     if mode == "gqa":                     # the grouped-query decoders alone
         rows = [r for arch in GQA_ARCHS for r in phase_gqa(arch, errs)]
+        log(json.dumps({"kernels": rows}))
+        log(f"chip_smoke: {time.perf_counter() - t0:.1f}s")
+        log(smi)
+        return 0
+    if mode == "families":                # whisper-tiny, internvl2-2b alone
+        rows = [r for arch in FAMILY_ARCHS for r in phase_family(arch, errs)]
         log(json.dumps({"kernels": rows}))
         log(f"chip_smoke: {time.perf_counter() - t0:.1f}s")
         log(smi)
@@ -3510,6 +3769,8 @@ def main(argv) -> int:
         free_model(res)
     for arch in GQA_ARCHS:        # one at a time, each freed after its phase
         rows += phase_gqa(arch, errs)
+    for arch in FAMILY_ARCHS:     # the same, the encoder/decoder and the VLM
+        rows += phase_family(arch, errs)
     for arch in TRAIN_ARCHS:
         rows += phase_training(arch, errs, smi)
     log(f"chip_smoke: {time.perf_counter() - t0:.1f}s")

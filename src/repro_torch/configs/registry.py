@@ -1,11 +1,10 @@
 """Architecture registry: ``--arch <id>`` lookup, smoke-config reduction.
 
 The port's copy of ``repro.configs.registry``.  It holds the
-architectures the port can build: the dense decoders (qwen1.5-0.5b,
-qwen3-4b, granite-3-8b, starcoder2-7b), the MoE decoders
-(deepseek-moe-16b, kimi-k2), the attention-free Mamba2 stack and the
-Zamba2 hybrid.  whisper-tiny (enc-dec) and internvl2-2b (VLM) join with
-the slices that port their families (ROADMAP "Modules to port").
+architectures of the reference's registry: the dense decoders
+(qwen1.5-0.5b, qwen3-4b, granite-3-8b, starcoder2-7b), the MoE decoders
+(deepseek-moe-16b, kimi-k2), the attention-free Mamba2 stack, the Zamba2
+hybrid, the whisper-tiny encoder/decoder and the internvl2-2b VLM.
 """
 from __future__ import annotations
 
@@ -18,14 +17,16 @@ from repro_torch.configs.starcoder2_7b import CONFIG as _STARCODER2
 from repro_torch.configs.granite3_8b import CONFIG as _GRANITE3
 from repro_torch.configs.qwen3_4b import CONFIG as _QWEN3
 from repro_torch.configs.zamba2_12b import CONFIG as _ZAMBA2
+from repro_torch.configs.whisper_tiny import CONFIG as _WHISPER
 from repro_torch.configs.deepseek_moe_16b import CONFIG as _DSMOE
 from repro_torch.configs.kimi_k2 import CONFIG as _KIMI
 from repro_torch.configs.mamba2_130m import CONFIG as _MAMBA2
+from repro_torch.configs.internvl2_2b import CONFIG as _INTERNVL
 
 ARCHS: Dict[str, ModelConfig] = {
     c.name: c
-    for c in (_QWEN15, _STARCODER2, _GRANITE3, _QWEN3, _ZAMBA2, _DSMOE,
-              _KIMI, _MAMBA2)
+    for c in (_QWEN15, _STARCODER2, _GRANITE3, _QWEN3, _ZAMBA2, _WHISPER,
+              _DSMOE, _KIMI, _MAMBA2, _INTERNVL)
 }
 
 

@@ -25,7 +25,7 @@ from repro_torch.kernels.common import (DTYPE_CODES, HEAD_DIMS,
                                         dispatch, round_up)
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 
-LAUNCHES = LaunchCounter()  # wrapper calls that launched the kernel
+LAUNCHES = LaunchCounter()  # launches, by the cache's (S, H, K, D)
 
 WARPS = 4           # warps of a block in the kernel; each streams its own tiles
 TILE_BYTES = 2048   # K rows of one warp's tile (and as many of V)
@@ -144,5 +144,5 @@ def _decode_cuda(q, k, v, lengths, scale):
             out.data_ptr(), pa, pm, cnt, B, S, H, K, D, DTYPE_CODES[q.dtype],
             gt, split_len, n_splits, scale, stream)
     _build.check("decode_attention", rc)
-    LAUNCHES.add()
+    LAUNCHES.add((S, H, K, D))
     return out

@@ -31,7 +31,7 @@ from repro_torch.kernels.common import (DTYPE_CODES, HEAD_DIMS,
 from repro_torch.kernels.flash_attention.ref import (attention_ref,
                                                      flash_attention_bwd)
 
-LAUNCHES = LaunchCounter()      # kernel launches (chip_smoke reads it)
+LAUNCHES = LaunchCounter()      # kernel launches, by (Sq, Sk, H, K, D, causal)
 
 _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
              + [ctypes.c_float, ctypes.c_void_p])
@@ -104,5 +104,5 @@ def _flash_cuda(q, k, v, causal, scale, q_offset, stats: bool = False):
             B, Sq, Sk, H, K, D, DTYPE_CODES[q.dtype], int(causal), q_offset,
             scale, stream)
     _build.check("flash_attention", rc)
-    LAUNCHES.add()
+    LAUNCHES.add((Sq, Sk, H, K, D, bool(causal)))
     return out, lse

@@ -315,7 +315,12 @@ def run_faasm_fanout(model, params, vocab_size: int, n_requests: int,
     ``warmup_launches`` (the warm-ups' launches, a ``LaunchLog``, read
     apart from the replays'); with ``state_wire``, ``stats``:
     the global ``serve/stats`` value at the end.  The graphs are freed when
-    the runtime shuts down."""
+    the runtime shuts down.
+
+    The call's forward is ``model.logits(params, tokens)``, as the
+    reference's ``make_infer_function`` runs it, with no extra input: the
+    VLM and encoder/decoder families, which need one, raise (ROADMAP
+    "Enc-dec and VLM: the card's training and the fan-out")."""
     from repro_torch import overload as oload
     from repro_torch.core import FaasmRuntime
     from repro_torch.state.ddo import VectorAsync
@@ -330,6 +335,11 @@ def run_faasm_fanout(model, params, vocab_size: int, n_requests: int,
                       device=device)
     hint = ["serve/stats"] if state_wire is not None else None
     try:
+        if model.cfg.family in ("encdec", "vlm"):
+            raise NotImplementedError(
+                f"{model.cfg.name}: the Faasm fan-out's forward takes no "
+                f"{model.cfg.family} input (ROADMAP 'Enc-dec and VLM: the "
+                f"card's training and the fan-out')")
         if state_wire is not None:
             VectorAsync.create(rt.global_tier, "serve/stats",
                                np.zeros(vocab_size, np.float32))
@@ -442,6 +452,19 @@ def parser() -> argparse.ArgumentParser:
     return ap
 
 
+def serve_extra(model, batch: int, rng: np.random.Generator, device):
+    """The extra input the reference's launcher draws after the prompt,
+    from the same ``rng``: unit normals of ``model.extra_shape(batch)`` (a
+    VLM's stubbed patch embeddings, an encoder's stubbed frames), cast
+    from f64 to bf16 in one step as the reference's ``jnp.asarray``; None
+    for a family without one."""
+    shape = model.extra_shape(batch)
+    if shape is None:
+        return None
+    return torch.from_numpy(rng.normal(size=shape)).to(device=device,
+                                                       dtype=torch.bfloat16)
+
+
 @torch.no_grad()
 def main(argv: Optional[List[str]] = None, keep_logits: bool = False) -> dict:
     """Run the serving loop (and the fan-out); returns what it produced.
@@ -458,7 +481,8 @@ def main(argv: Optional[List[str]] = None, keep_logits: bool = False) -> dict:
     (:func:`~repro_torch.launch.step_graphs.eager_generate`).
 
     The result holds the config, model, parameters, prompt ``tokens``
-    (B, S), the generated ids ``gen`` (B, new_tokens), the prefill and
+    (B, S), the family's ``extra`` input (:func:`serve_extra`), the
+    generated ids ``gen`` (B, new_tokens), the prefill and
     decode wall times and ``graphs``, the ServeGraphs object (None on the
     CPU; its ``close`` frees the graphs), with ``capture_s``, its warm-up
     and capture time; with ``--faasm-requests`` also ``faasm``, the
@@ -484,21 +508,23 @@ def main(argv: Optional[List[str]] = None, keep_logits: bool = False) -> dict:
     params = model.init(gen, device)
 
     B, S = args.batch, args.prompt_len
-    max_len = S + args.new_tokens
+    max_len = S + args.new_tokens + model.prefix_len
     rng = np.random.default_rng(args.seed)      # the JAX launcher's prompts
     tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, S)),
                              dtype=torch.int32, device=device)
+    extra = serve_extra(model, B, rng, device)  # and its extra input
 
     tel = tspans.tracer()
     graphs = None
     if device.type == "cuda":       # the compiled step, captured before t0
         t0 = tclock.now()
-        graphs = ServeGraphs(model, params, B, S, max_len, device)
+        graphs = ServeGraphs(model, params, B, S, max_len, device,
+                             extra=extra)
         h_capture.observe((tclock.now() - t0) * 1e3)
         run = graphs.generate(tokens, args.new_tokens, keep_logits)
     else:
         run = eager_generate(model, params, tokens, args.new_tokens,
-                             keep_logits)
+                             keep_logits, extra=extra)
     t0, t1, t2 = run.stamps
     h_prefill.observe((t1 - t0) * 1e3)
     h_decode.observe((t2 - t1) * 1e3)
@@ -520,7 +546,7 @@ def main(argv: Optional[List[str]] = None, keep_logits: bool = False) -> dict:
           f"({(args.new_tokens - 1) * B / max(decode_s, 1e-9):.1f} tok/s)")
     print("generated ids[0]:", gen_ids[0][:12].cpu().numpy(), "...")
     result = {"cfg": cfg, "model": model, "params": params, "tokens": tokens,
-              "gen": gen_ids, "prefill_s": prefill_s, "decode_s": decode_s,
+              "extra": extra, "gen": gen_ids, "prefill_s": prefill_s, "decode_s": decode_s,
               "graphs": graphs, "capture_s": capture_s}
     if keep_logits:
         result["logits"] = run.logits

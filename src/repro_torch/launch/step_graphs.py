@@ -7,7 +7,10 @@ compiles each step once per shape and then calls the compiled program;
 here each step's kernels are recorded once on the card, and every later
 step is one host call that replays the record.  The kernels and their
 order are those of the eager loop (:func:`eager_generate`), which is what
-the CPU runs: it has no graphs.
+the CPU runs: it has no graphs.  The VLM's patch embeddings and the
+encoder's frames (``extra``) go to the prefill, as in the reference's
+``prefill(params, tokens, cache, extra)``; a VLM's positions start after
+its ``n_image_tokens`` patch embeddings.
 """
 from __future__ import annotations
 
@@ -50,15 +53,16 @@ def sync(device: torch.device) -> None:
 
 @torch.no_grad()
 def eager_generate(model, params, tokens, new_tokens: int,
-                   keep_logits: bool = False) -> Generation:
-    """Prefill ``tokens`` (B, S) and decode greedily, op by op from Python,
-    into a fresh cache of S + ``new_tokens`` positions."""
+                   keep_logits: bool = False, extra=None) -> Generation:
+    """Prefill ``tokens`` (B, S) (and ``extra``, the family's extra input)
+    and decode greedily, op by op from Python, into a fresh cache of
+    ``model.prefix_len`` + S + ``new_tokens`` positions."""
     B, S = tokens.shape
     device = tokens.device
-    cache = model.init_cache(B, S + new_tokens, device)
+    cache = model.init_cache(B, model.prefix_len + S + new_tokens, device)
     sync(device)
     t0 = tclock.now()
-    logits, cache, n = model.prefill(params, tokens, cache)
+    logits, cache, n = model.prefill(params, tokens, cache, extra)
     tok = torch.argmax(logits, -1).to(torch.int32)
     sync(device)
     t1 = tclock.now()
@@ -137,10 +141,14 @@ class ServeGraphs:
     one jitted shape of the reference.  A prompt of another shape, or more
     new tokens than the cache holds, raises: nothing re-captures.
 
-    Static buffers: the prompt (B, S) int32; ``tok`` (B,) int32, which each
+    Static buffers: the prompt (B, S) int32; ``extra``, a copy of the
+    family's extra input given at construction (the VLM's patch
+    embeddings, the encoder's frames; None for the other families), which
+    the prefill graph reads, so that these graphs serve that one input;
+    ``tok`` (B,) int32, which each
     step reads and then overwrites with its argmax; ``idx`` (B,) int32, the
-    position of the next token, which the prefill graph sets to S and each
-    decode graph advances by 1 on the card, so that the host writes nothing
+    position of the next token, which the prefill graph sets to
+    ``model.prefix_len`` + S and each decode graph advances by 1 on the card, so that the host writes nothing
     between steps; the serving ``cache``; and ``logits`` (B, V) f32, which
     each step overwrites with its own.
 
@@ -173,19 +181,24 @@ class ServeGraphs:
 
     def __init__(self, model, params, batch: int, prompt_len: int,
                  max_len: int, device="cuda", *,
-                 capture: Optional[CudaCapture] = None) -> None:
+                 capture: Optional[CudaCapture] = None,
+                 extra: Optional[torch.Tensor] = None) -> None:
         device = resolve_device(device)
         if capture is None:
             if device.type != "cuda":
                 raise ValueError("CUDA graphs need the card; on the CPU run "
                                  "eager_generate")
             capture = CudaCapture(device)
-        if not 0 < prompt_len < max_len:
-            raise ValueError(f"prompt_len {prompt_len}, max_len {max_len}")
+        self.start = model.prefix_len + prompt_len   # the first decode
+        if not 0 < prompt_len < max_len or self.start >= max_len:
+            raise ValueError(f"prompt_len {prompt_len} after "
+                             f"{model.prefix_len} patch embeddings, "
+                             f"max_len {max_len}")
         self.model, self.params, self.device = model, params, device
         self.shape = (batch, prompt_len, max_len)
         self.prompt = torch.zeros((batch, prompt_len), dtype=torch.int32,
                                   device=device)
+        self.extra = None if extra is None else extra.to(device, copy=True)
         self.tok = torch.zeros((batch,), dtype=torch.int32, device=device)
         self.idx = torch.zeros((batch,), dtype=torch.int32, device=device)
         self.logits = torch.zeros((batch, model.cfg.vocab_size),
@@ -204,7 +217,7 @@ class ServeGraphs:
 
     def _prefill_body(self) -> None:
         logits, _, n = self.model.prefill(self.params, self.prompt,
-                                          self.cache)
+                                          self.cache, self.extra)
         self._emit(logits)
         self.idx.fill_(n)
 
@@ -233,16 +246,16 @@ class ServeGraphs:
         return self.logits
 
     def prefill(self, tokens: torch.Tensor) -> torch.Tensor:
-        """Replay the prefill on ``tokens`` (B, S); returns the last
-        token's logits (``logits``, which the next step rewrites) and
-        leaves their argmax in ``tok``."""
+        """Replay the prefill on ``tokens`` (B, S) (and ``extra``); returns
+        the last token's logits (``logits``, which the next step rewrites)
+        and leaves their argmax in ``tok``."""
         B, S, _ = self.shape
         if tuple(tokens.shape) != (B, S):
             raise ValueError(f"prompt of shape {tuple(tokens.shape)}: these "
                              f"graphs were captured for ({B}, {S})")
         self.prompt.copy_(tokens)
         logits = self._replay("prefill")
-        self._next = S
+        self._next = self.start
         return logits
 
     def step(self) -> torch.Tensor:
@@ -261,10 +274,10 @@ class ServeGraphs:
                  keep_logits: bool = False) -> Generation:
         """One prefill replay, then ``new_tokens - 1`` decode replays, each
         step's token (and logits) copied out."""
-        B, S, max_len = self.shape
-        if not 1 <= new_tokens <= max_len - S:
+        max_len = self.shape[2]
+        if not 1 <= new_tokens <= max_len - self.start:
             raise ValueError(f"{new_tokens} new tokens: these graphs hold "
-                             f"1 to {max_len - S}")
+                             f"1 to {max_len - self.start}")
         sync(self.device)
         t0 = tclock.now()
         logits = self.prefill(tokens)

@@ -1,8 +1,8 @@
-"""GQA self-attention: parameters, full-sequence, prefill and decode paths.
+"""GQA attention: parameters, full-sequence, prefill and decode paths, and
+the encoder/decoder's cross-attention.
 
-Self-attention subset of ``repro.models.attention``; cross-attention comes
-with the encoder/decoder slice.  Dispatches to the flash-attention and
-decode-attention kernel packages.  KV caches are (B, S_max, K, D) per
+Counterpart of ``repro.models.attention``.  Dispatches to the
+flash-attention and decode-attention kernel packages.  KV caches are (B, S_max, K, D) per
 layer; decode writes the new token's K/V at per-sequence positions
 (sequences in a serving batch have different lengths — the Faasm serving
 runtime batches unrelated requests).
@@ -112,3 +112,39 @@ def attn_apply_decode(p: Attention, cfg: ModelConfig, ec: ExecConfig, x,
     y = decode_attention(q[:, 0], cache_k.to(q.dtype), cache_v.to(q.dtype),
                          lengths, backend=ec.backend)
     return _out_proj(p, y[:, None], B, 1, cfg), cache_k, cache_v
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention (encoder/decoder)
+# ---------------------------------------------------------------------------
+
+def cross_attn_init(cfg: ModelConfig, device=None) -> Attention:
+    """The cross-attention's parameters: a self-attention's (filled by
+    ``weights``)."""
+    return Attention(cfg, device=device)
+
+
+def cross_attn_precompute(p: Attention, cfg: ModelConfig, enc_out):
+    """K/V over the encoder's output, once per request.  enc_out: (B, F, d)
+    -> k, v (B, F, K, D)."""
+    B, F, _ = enc_out.shape
+    k = enc_out @ p.wk
+    v = enc_out @ p.wv
+    if cfg.qkv_bias:
+        k, v = k + p.bk, v + p.bv
+    return (k.reshape(B, F, cfg.n_kv_heads, cfg.head_dim),
+            v.reshape(B, F, cfg.n_kv_heads, cfg.head_dim))
+
+
+def cross_attn_apply(p: Attention, cfg: ModelConfig, ec: ExecConfig, x, ck,
+                     cv) -> torch.Tensor:
+    """Decoder cross-attention (no masking).  x: (B, S, d); ck/cv: (B, F,
+    K, D)."""
+    B, S, _ = x.shape
+    q = x @ p.wq
+    if cfg.qkv_bias:
+        q = q + p.bq
+    q = q.reshape(B, S, cfg.n_heads, cfg.head_dim)
+    y = flash_attention(q, ck.to(q.dtype), cv.to(q.dtype), causal=False,
+                        backend=ec.backend)
+    return _out_proj(p, y, B, S, cfg)

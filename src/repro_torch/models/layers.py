@@ -1,6 +1,6 @@
 """Shared neural-net layers: norms, RoPE, MLPs, embeddings, chunked loss.
 
-Dense subset of ``repro.models.layers``.  Each layer is an ``nn.Module``
+The port's counterpart of ``repro.models.layers``.  Each layer is an ``nn.Module``
 that holds its parameters in the JAX package's layout (``x @ w`` with
 ``w`` of shape (in, out)), and a plain function on tensors that applies
 it, taking the module as ``p`` as the JAX functions take a dict.
@@ -96,6 +96,15 @@ def rope_apply(x, positions, theta: float):
     x1, x2 = x[..., :half].float(), x[..., half:].float()
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_positions(n: int, d: int, device=None) -> torch.Tensor:
+    """Whisper-style fixed sinusoidal embeddings (n, d), in f32."""
+    half = d // 2
+    inv = torch.exp(-math.log(10_000.0) * torch.arange(
+        half, dtype=torch.float32, device=device) / max(half - 1, 1))
+    ang = torch.arange(n, dtype=torch.float32, device=device)[:, None] * inv[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=1)
 
 
 # ---------------------------------------------------------------------------

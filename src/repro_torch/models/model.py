@@ -1,14 +1,19 @@
 """Unified model facade: ``build_model(cfg, ec)`` and :class:`Model`.
 
-Counterpart of ``repro.models.model`` for the families the port runs (the
-dense and MoE decoders, the Mamba2 stack and the Zamba2 hybrid).  Methods
-take the parameters (a :class:`~repro_torch.models.transformer.Transformer`
-or a :class:`~repro_torch.models.ssm_stack.SSMStack`) and inputs, as the
-JAX methods take a parameter tree.  The ``extra`` inputs of the VLM and
-enc-dec families come with their slices, the dry-run input specs with
-ROADMAP "Multi-device and dry-run".  Parameters and caches are built on
-the card unless the caller names the CPU: a missing card raises rather
-than handing back CPU tensors that would run the plain versions.
+Counterpart of ``repro.models.model`` for every family of the registry:
+the dense, MoE and VLM decoders, the Mamba2 stack, the Zamba2 hybrid and
+the Whisper-style encoder/decoder.  Methods take the parameters (the
+``Params`` module of the family's module: a
+:class:`~repro_torch.models.transformer.Transformer`,
+:class:`~repro_torch.models.ssm_stack.SSMStack` or
+:class:`~repro_torch.models.encdec.EncDec`) and inputs, as the JAX methods
+take a parameter tree.  The VLM's patch embeddings and the encoder's
+frames come in as ``extra`` (``logits``, ``prefill``) or in the batch
+(``loss``: ``image_embeds``, ``frames``), as there.  The dry-run input
+specs come with ROADMAP "Multi-device and dry-run".  Parameters and
+caches are built on the card unless the caller names the CPU: a missing
+card raises rather than handing back CPU tensors that would run the
+plain versions.
 """
 from __future__ import annotations
 
@@ -19,11 +24,15 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.common import resolve_device
-from repro_torch.models import ssm_stack, transformer
+from repro_torch.models import encdec, ssm_stack, transformer
 from repro_torch.models.execution import DEFAULT_EXEC, ExecConfig
 
 _FAMILY_MODULES = {"dense": transformer, "moe": transformer,
-                   "ssm": ssm_stack, "hybrid": ssm_stack}
+                   "vlm": transformer, "ssm": ssm_stack, "hybrid": ssm_stack,
+                   "encdec": encdec}
+# the extra input: its argument name and the config field of its length
+_EXTRA = {"vlm": ("image_embeds", "n_image_tokens"),
+          "encdec": ("frames", "n_frames")}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,11 +52,38 @@ class Model:
 
     # -- training ----------------------------------------------------------------
     def loss(self, params, batch):
-        """(loss, metrics) for a train batch (tensors tokens/targets/mask)."""
+        """(loss, metrics) for a train batch (tensors tokens/targets/mask,
+        and the family's extra input: image_embeds or frames)."""
         return self._mod.forward_train(params, self.cfg, self.ec, batch)
 
-    def logits(self, params, tokens):
-        return self._mod.forward_logits(params, self.cfg, self.ec, tokens)
+    def extra_shape(self, batch: int) -> Optional[tuple]:
+        """Shape of the family's extra input for ``batch`` rows: the VLM's
+        patch embeddings (B, n_image_tokens, d_model), the encoder's frames
+        (B, n_frames, d_model); None for a family without one."""
+        if self.cfg.family not in _EXTRA:
+            return None
+        return (batch, getattr(self.cfg, _EXTRA[self.cfg.family][1]),
+                self.cfg.d_model)
+
+    @property
+    def prefix_len(self) -> int:
+        """Positions a prefill takes ahead of the prompt's tokens: the VLM's
+        patch embeddings, else none."""
+        return self.cfg.n_image_tokens if self.cfg.family == "vlm" else 0
+
+    def _extra(self, extra) -> dict:
+        if self.cfg.family not in _EXTRA:
+            if extra is not None:
+                raise ValueError(f"{self.cfg.name}: family "
+                                 f"{self.cfg.family!r} takes no extra input")
+            return {}
+        return {_EXTRA[self.cfg.family][0]: extra}
+
+    def logits(self, params, tokens, extra=None):
+        """Logits of every position; ``extra`` is the VLM's patch
+        embeddings or the encoder's frames."""
+        return self._mod.forward_logits(params, self.cfg, self.ec, tokens,
+                                        **self._extra(extra))
 
     # -- serving -----------------------------------------------------------------
     def init_cache(self, batch: int, max_len: int, device="cuda"):
@@ -55,9 +91,11 @@ class Model:
         return self._mod.init_cache(self.cfg, batch, max_len,
                                     resolve_device(device))
 
-    def prefill(self, params, tokens, cache):
-        """Returns (last-token logits, cache, prefix_len)."""
-        return self._mod.prefill(params, self.cfg, self.ec, tokens, cache)
+    def prefill(self, params, tokens, cache, extra=None):
+        """Returns (last-token logits, cache, prefix_len); ``extra`` as for
+        :meth:`logits`."""
+        return self._mod.prefill(params, self.cfg, self.ec, tokens, cache,
+                                 **self._extra(extra))
 
     def decode_step(self, params, token, cache, index):
         """One serve step: (logits (B,V), cache)."""
@@ -66,8 +104,4 @@ class Model:
 
 
 def build_model(cfg: ModelConfig, ec: Optional[ExecConfig] = None) -> Model:
-    if cfg.family not in _FAMILY_MODULES:
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet (ROADMAP "
-            f"'Modules to port': enc-dec and VLM come in later slices)")
     return Model(cfg=cfg, ec=ec or DEFAULT_EXEC)

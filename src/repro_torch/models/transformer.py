@@ -1,7 +1,9 @@
-"""Decoder-only transformer: the dense and MoE families.
+"""Decoder-only transformer: the dense, MoE and VLM families.
 
-Dense and MoE branches of ``repro.models.transformer``, with the same
-functions, signatures and return values.  The JAX package stacks the
+Counterpart of ``repro.models.transformer``, with the same functions,
+signatures and return values.  The VLM family prepends the stubbed
+vision frontend's patch embeddings (B, n_image_tokens, d_model) to the
+text's and keeps the loss on the text positions.  The JAX package stacks the
 layers on a leading axis and runs them with ``lax.scan``; here they are an
 ``nn.ModuleList`` walked by a Python loop, and the KV cache keeps the
 stacked (L, B, S_max, K, D) layout so each layer writes its slice in
@@ -12,8 +14,7 @@ in ``first_layers`` (unstacked in the reference too) with their own
 the reference's scan body: ``torch.utils.checkpoint`` for ``"full"``, a
 selective checkpoint that keeps the weight matmuls' outputs for
 ``"dots"``; serving's forward never rematerialises.
-``seq_shard_constraint`` is dropped (a no-op on one device).  The VLM
-branch raises until its slice is ported.
+``seq_shard_constraint`` is dropped (a no-op on one device).
 """
 from __future__ import annotations
 
@@ -30,13 +31,6 @@ from repro_torch.models.attention import (Attention, attn_apply_decode,
                                           attn_apply_full, attn_apply_prefill)
 from repro_torch.models.execution import ExecConfig
 from repro_torch.models.moe import MoE, moe_apply
-
-
-def _require_ported(cfg: ModelConfig) -> None:
-    if cfg.family == "vlm":
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet "
-            f"(ROADMAP 'Modules to port': VLM comes in a later slice)")
 
 
 def _n_first(cfg: ModelConfig) -> int:
@@ -73,7 +67,6 @@ class Transformer(nn.Module):
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
-        _require_ported(cfg)
         self.cfg = cfg
         self.embed = L.empty_param((cfg.vocab_size, cfg.d_model), cfg, device)
         if not cfg.tie_embeddings:
@@ -170,10 +163,13 @@ def init_params(key: torch.Generator, cfg: ModelConfig, device=None) -> Transfor
 
 def _embed_inputs(params: Transformer, cfg: ModelConfig, tokens,
                   image_embeds=None):
-    if image_embeds is not None:
-        raise NotImplementedError("image embeddings: the VLM family is not "
-                                  "ported yet (ROADMAP 'Modules to port')")
-    return L.embed_apply(params, cfg, tokens)
+    h = L.embed_apply(params, cfg, tokens)
+    if cfg.family == "vlm":
+        if image_embeds is None:
+            raise ValueError(f"{cfg.name}: the VLM family needs the stubbed "
+                             f"patch embeddings (image_embeds)")
+        h = torch.cat([image_embeds.to(h.dtype), h], dim=1)
+    return h
 
 
 def forward_hidden(params: Transformer, cfg: ModelConfig, ec: ExecConfig,
@@ -197,9 +193,12 @@ def forward_hidden(params: Transformer, cfg: ModelConfig, ec: ExecConfig,
 
 def forward_train(params: Transformer, cfg: ModelConfig, ec: ExecConfig,
                   batch):
-    """batch: tokens/targets/mask tensors.  Returns (loss + aux, metrics)."""
+    """batch: tokens/targets/mask (+ image_embeds) tensors.  Returns (loss +
+    aux, metrics)."""
     h, aux = forward_hidden(params, cfg, ec, batch["tokens"],
                             batch.get("image_embeds"), train=True)
+    if cfg.family == "vlm":
+        h = h[:, cfg.n_image_tokens:]        # loss only over text positions
     loss = L.chunked_loss(params, cfg, h, batch["targets"], batch["mask"],
                           ec.loss_chunk)
     return loss + aux, {"loss": loss, "aux_loss": aux}
@@ -216,7 +215,6 @@ def forward_logits(params: Transformer, cfg: ModelConfig, ec: ExecConfig,
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
-    _require_ported(cfg)
     n_first = _n_first(cfg)
     kv = lambda n: torch.zeros((n, batch, max_len, cfg.n_kv_heads,
                                 cfg.head_dim), dtype=L.dt(cfg.dtype),
@@ -230,8 +228,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
 
 def prefill(params: Transformer, cfg: ModelConfig, ec: ExecConfig, tokens,
             cache, image_embeds=None):
-    """Left-aligned prefill.  Returns (last-token logits, cache, seq_len);
-    the cache is written in place."""
+    """Left-aligned prefill (a VLM's patch embeddings ahead of its text).
+    Returns (last-token logits, cache, seq_len); the cache is written in
+    place."""
     h = _embed_inputs(params, cfg, tokens, image_embeds)
     S = h.shape[1]
     positions = torch.arange(S, device=h.device) if cfg.use_rope else None
@@ -251,7 +250,7 @@ def decode_step(params: Transformer, cfg: ModelConfig, ec: ExecConfig, token,
     """One serve step.  token: (B,) int32; index: (B,) int32 position of
     this token.  Returns (logits (B, V), cache); the cache is written in
     place."""
-    h = _embed_inputs(params, cfg, token[:, None])
+    h = L.embed_apply(params, cfg, token[:, None])
     for i, lp in enumerate(_first_layers(params)):
         h, _, _ = block_decode(lp, cfg, ec, h, cache["first_k"][i],
                                cache["first_v"][i], index)

@@ -1,10 +1,12 @@
 """Parameters of the port's models: drawn from a seed, loaded from the JAX
 model's parameter tree, or written back to that tree's layout.
 
-``from_jax_params`` takes the tree ``repro.models.transformer.init_params``
-or ``repro.models.ssm_stack.init_params`` builds — nested dicts with the
-layers stacked on a leading (L, ...) axis, and an MoE config's leading
-dense layers as a list of unstacked dicts — as numpy arrays
+``from_jax_params`` takes the tree ``repro.models.transformer``,
+``repro.models.ssm_stack`` or ``repro.models.encdec``'s ``init_params``
+builds — nested dicts with each stack's layers (``layers``, and an
+encoder's ``encoder/layers``) stacked on a leading (L, ...) axis, and an
+MoE config's leading dense layers as a list of unstacked dicts — as numpy
+arrays
 (``np.asarray`` of each JAX leaf), so the two packages can run the same
 weights.  ``init_params`` draws fresh weights with the JAX
 package's distributions from a ``torch.Generator``: ``jax.random`` streams
@@ -34,8 +36,7 @@ from repro_torch.models.model import build_model
 
 def params_class(cfg: ModelConfig):
     """The ``nn.Module`` that holds ``cfg``'s parameters: the ``Params`` of
-    its family's module (``model._FAMILY_MODULES``; ``build_model`` raises
-    for a family not ported yet)."""
+    its family's module (``model._FAMILY_MODULES``)."""
     return build_model(cfg)._mod.Params
 
 
@@ -71,23 +72,32 @@ def torch_to_numpy(t: torch.Tensor) -> Union[np.ndarray, Bits]:
     return t.numpy()
 
 
+def _stacked_at(parts) -> int:
+    """Where a parameter name indexes a stacked stack (``layers.3.…``,
+    ``encoder.layers.3.…``): the position of that index, else -1.  An MoE
+    config's ``first_layers`` are a list, not a stack."""
+    for j in range(len(parts) - 1):
+        if parts[j] == "layers" and parts[j + 1].isdigit():
+            return j + 1
+    return -1
+
+
 def jax_leaf(tree: Mapping[str, Any], name: str):
     """``layers.3.moe.shared.w_up`` -> tree["layers"]["moe"]["shared"]
-    ["w_up"][3] (stacked); ``first_layers.0.attn.wq`` ->
+    ["w_up"][3] (stacked; ``encoder.layers.3.attn.wq`` likewise under
+    tree["encoder"]["layers"]); ``first_layers.0.attn.wq`` ->
     tree["first_layers"][0]["attn"]["wq"] (a list of unstacked layers)."""
     parts = name.split(".")
-    if parts[0] == "layers":
-        node = tree["layers"]
-        for p in parts[2:]:
-            node = node[p]
-        i = int(parts[1])
-        if isinstance(node, Bits):
-            return Bits(node.bits[i], node.dtype)
-        return np.asarray(node)[i]
+    j = _stacked_at(parts)
     node = tree
-    for p in parts:
+    for p in (parts if j < 0 else parts[:j] + parts[j + 1:]):
         node = node[int(p)] if isinstance(node, (list, tuple)) else node[p]
-    return node
+    if j < 0:
+        return node
+    i = int(parts[j])
+    if isinstance(node, Bits):
+        return Bits(node.bits[i], node.dtype)
+    return np.asarray(node)[i]
 
 
 @torch.no_grad()
@@ -127,9 +137,9 @@ def to_jax_params(params, cfg: ModelConfig) -> dict:
     """The inverse of :func:`from_jax_params`: the reference's parameter
     tree of ``cfg``'s family, with numpy leaves (bf16 ones as
     :class:`Bits`), from a model (:func:`params_class`) or from a mapping
-    of its parameter names to tensors (its gradients, say).  The layers
-    are stacked on a leading (L, ...) axis, an MoE config's leading dense
-    layers kept as a list, and the keys are the reference's."""
+    of its parameter names to tensors (its gradients, say).  Each stack's
+    layers are stacked on a leading (L, ...) axis, an MoE config's leading
+    dense layers kept as a list, and the keys are the reference's."""
     named = dict(params.named_parameters() if isinstance(params, nn.Module)
                  else params.items())
     want = [n for n, _ in params_class(cfg)(cfg, device="meta")
@@ -141,15 +151,16 @@ def to_jax_params(params, cfg: ModelConfig) -> dict:
     for name in want:
         parts = name.split(".")
         leaf = torch_to_numpy(named[name])
-        if parts[0] == "layers":
-            stacks.setdefault(tuple(parts[2:]), []).append(leaf)
+        j = _stacked_at(parts)
+        if j >= 0:            # layer by layer, in order: stacked below
+            stacks.setdefault(tuple(parts[:j] + parts[j + 1:]), []).append(leaf)
             continue
         node = tree
         for p in parts[:-1]:
             node = node.setdefault(p, {})
         node[parts[-1]] = leaf
     for path, leaves in stacks.items():
-        node = tree.setdefault("layers", {})
+        node = tree
         for p in path[:-1]:
             node = node.setdefault(p, {})
         node[path[-1]] = _stack(leaves)

@@ -15,7 +15,11 @@ reference's ssd tolerance) and 3e-2 with bf16 operands or the models' own
 decays, at mamba2-130m's and zamba2-1.2b's prefill shapes and at the
 ragged, short, long and grouped cases, and under autograd
 (``SSDScanFn``: K8's forward, the plain chunked scan's backward) at the
-same tolerances.  The twins of the paper's experiments: Fig. 6 with one
+same tolerances.  whisper-tiny's and internvl2-2b's shapes (K5 without a
+mask over 1,500 keys, K6 over a full 1,500-frame cache and at G 2, D 128)
+join the attention cases, and their smoke models run kernel path against
+plain path and graphed loop against eager loop.  The twins of the paper's
+experiments: Fig. 6 with one
 worker trains the same weights on the card as on the CPU bitwise, on both
 wires, and the Fig. 9 twin's rows hold and count their launches.  This
 file imports no JAX: the
@@ -64,6 +68,11 @@ FLASH_CASES = [
     (1, 70, 20, 4, 4, 128, False, 0),
     (4, 512, 512, 32, 8, 128, True, 0),         # qwen3-4b's, granite-3-8b's
     (4, 512, 512, 36, 4, 128, True, 0),         # starcoder2-7b's prefill: G 9
+    (4, 1500, 1500, 6, 6, 64, False, 0),        # whisper-tiny's encoder
+    (4, 512, 1500, 6, 6, 64, False, 0),         # its cross-attention
+    (4, 512, 512, 6, 6, 64, True, 0),           # its decoder: H 6
+    (4, 768, 768, 16, 8, 128, True, 0),         # internvl2-2b's prefill: G 2
+    (2, 300, 1500, 16, 8, 128, False, 0),       # ragged Sk, no mask, D 128
 ]
 DECODE_CASES = [
     # B, S, H, K, D
@@ -77,6 +86,9 @@ DECODE_CASES = [
     (2, 777, 36, 4, 128),                       # G 9: two head groups
     (4, 544, 32, 8, 128),                       # qwen3-4b's, granite-3-8b's
     (4, 544, 36, 4, 128),                       # starcoder2-7b's: G 9
+    (4, 544, 6, 6, 64),                         # whisper-tiny's decoder
+    (4, 1500, 6, 6, 64),                        # its cross-attention cache
+    (4, 800, 16, 8, 128),                       # internvl2-2b's: G 2, D 128
 ]
 # H, K, D at batch 4 over a cache of 544: the five served shapes (the
 # last two grouped, G 4 and G 9), G 2, 4, 8
@@ -137,6 +149,23 @@ def test_decode_kernel_on_card(card, case, dtype):
     got = decode_attention(q, k, v, lengths)
     torch.cuda.synchronize()
     assert decode_ops.LAUNCHES.value == n + 1
+    _close(got, decode_attention_ref(q, k, v, lengths), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", [(4, 1500, 6, 6, 64), (4, 1500, 16, 8, 128)])
+def test_decode_kernel_over_a_full_cross_attention_cache(card, case, dtype):
+    """A cross-attention cache that every sequence fills (whisper-tiny's
+    1,500 frames): each length equals the capacity, which is no power of
+    two."""
+    B, S, H, K, D = case
+    rng = np.random.default_rng(1)
+    q = _randn(rng, (B, H, D), dtype, card)
+    k, v = (_randn(rng, (B, S, K, D), dtype, card) for _ in range(2))
+    lengths = torch.full((B,), S, dtype=torch.int32, device=card)
+    got = decode_attention(q, k, v, lengths)
     _close(got, decode_attention_ref(q, k, v, lengths), dtype)
 
 
@@ -327,6 +356,83 @@ def test_smoke_model_kernel_path_matches_plain_path(card, dtype):
             lk, _ = kern.decode_step(params, tok, caches[0], idx)
             lp, _ = plain.decode_step(params, tok, caches[1], idx)
         torch.testing.assert_close(lk, lp, atol=tol, rtol=tol)
+
+
+def _family_inputs(card, cfg, B, S):
+    rng = np.random.default_rng(0)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, S)),
+                             dtype=torch.int32, device=card)
+    extra = _randn(rng, build_model(cfg).extra_shape(B), torch.bfloat16,
+                   card)
+    return tokens, extra
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["whisper-tiny", "internvl2-2b"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_family_smoke_model_kernel_path_matches_plain_path(card, arch, dtype):
+    """The encoder/decoder and the VLM on the card: the full forward, the
+    prefill and four decode steps, kernel path against plain path, with
+    their frames or patch embeddings (f32 1e-4, bf16 5e-2)."""
+    cfg = smoke_config(arch).with_overrides(dtype=dtype, param_dtype=dtype)
+    kern = build_model(cfg, ExecConfig())
+    plain = build_model(cfg, ExecConfig(backend="torch"))
+    params = kern.init(torch.Generator(device=card).manual_seed(0), card)
+    tokens, extra = _family_inputs(card, cfg, 2, 24)
+    pre = kern.prefix_len
+    tol = 1e-4 if dtype == "float32" else 5e-2
+    n5, n6 = flash_ops.LAUNCHES.value, decode_ops.LAUNCHES.value
+    with torch.no_grad():
+        torch.testing.assert_close(kern.logits(params, tokens, extra),
+                                   plain.logits(params, tokens, extra),
+                                   atol=tol, rtol=tol)
+        caches = [m.init_cache(2, pre + 28, card) for m in (kern, plain)]
+        (lk, _, n), (lp, _, _) = (m.prefill(params, tokens, c, extra)
+                                  for m, c in zip((kern, plain), caches))
+        assert n == pre + 24
+        for i in range(4):
+            torch.testing.assert_close(lk, lp, atol=tol, rtol=tol)
+            tok = lp.argmax(-1).to(torch.int32)
+            idx = torch.full((2,), n + i, dtype=torch.int32, device=card)
+            lk, _ = kern.decode_step(params, tok, caches[0], idx)
+            lp, _ = plain.decode_step(params, tok, caches[1], idx)
+        torch.testing.assert_close(lk, lp, atol=tol, rtol=tol)
+    per_prefill = (cfg.n_enc_layers + 2 * cfg.n_layers
+                   if cfg.family == "encdec" else cfg.n_layers)
+    per_step = 2 * cfg.n_layers if cfg.family == "encdec" else cfg.n_layers
+    assert flash_ops.LAUNCHES.value - n5 == 2 * per_prefill   # + logits
+    assert decode_ops.LAUNCHES.value - n6 == 4 * per_step
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["whisper-tiny", "internvl2-2b"])
+def test_family_graphed_loop_equals_the_eager_loop_bitwise(card, arch):
+    """The step graphs with the frames or patch embeddings as a static
+    buffer: ids and logits bitwise the eager loop's, launches counted per
+    replay as the eager loop counts them."""
+    from repro_torch.launch.step_graphs import ServeGraphs, eager_generate
+    cfg = smoke_config(arch)
+    model = build_model(cfg, ExecConfig())
+    params = model.init(torch.Generator(device=card).manual_seed(0), card)
+    tokens, extra = _family_inputs(card, cfg, 2, GRAPH_PROMPT)
+    new = 5
+    counters = _kernel_counters()
+    for c in counters.values():
+        c.reset()
+    want = eager_generate(model, params, tokens, new, keep_logits=True,
+                          extra=extra)
+    eager = _read(counters)
+    graphs = ServeGraphs(model, params, 2, GRAPH_PROMPT,
+                         model.prefix_len + GRAPH_PROMPT + new, card,
+                         extra=extra)
+    for c in counters.values():
+        c.reset()
+    got = graphs.generate(tokens, new, keep_logits=True)
+    assert _read(counters) == eager
+    assert torch.equal(got.ids, want.ids)
+    for a, b in zip(got.logits, want.logits):
+        assert torch.equal(a, b)
+    graphs.close()
 
 
 # -- grouped matmul (K7) ---------------------------------------------------------

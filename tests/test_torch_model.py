@@ -173,9 +173,13 @@ def test_init_params_follows_the_jax_distributions():
 
 
 def test_unported_families_raise():
-    cfg = ModelConfig(**dataclasses.asdict(jax_smoke_config("whisper-tiny")))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(cfg)
+    """Every family builds now (whisper-tiny's enc-dec and internvl2-2b's
+    VLM included), and a family neither package knows still raises."""
+    for arch in ("whisper-tiny", "internvl2-2b"):
+        cfg = ModelConfig(**dataclasses.asdict(jax_smoke_config(arch)))
+        assert build_model(cfg).cfg.family == cfg.family
+    with pytest.raises(ValueError, match="unknown family 'audio'"):
+        dataclasses.replace(cfg, family="audio")
 
 
 def test_serve_smoke_on_cpu(capsys):

@@ -46,6 +46,7 @@ from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.launch import serve
 from repro_torch.models import ExecConfig, build_model
 from repro_torch.models import ssm
+from repro_torch.models.encdec import EncDec
 from repro_torch.models.ssm_stack import SSMStack
 from repro_torch.models.transformer import Transformer
 from repro_torch.models.weights import (from_jax_params, init_params,
@@ -531,18 +532,17 @@ def test_full_width_parameter_count(arch, approx):
 @pytest.mark.parametrize("arch,want", [
     ("qwen1.5-0.5b", Transformer), ("deepseek-moe-16b", Transformer),
     ("mamba2-130m", SSMStack), ("zamba2-1.2b", SSMStack),
-    ("whisper-tiny", NotImplementedError)])
+    ("whisper-tiny", EncDec), ("internvl2-2b", Transformer)])
 def test_params_class_follows_the_family_map(arch, want):
     """``params_class`` (the fan-out's ``bind_params``, ``from_jax_params``,
-    ``init_params``) reads the family map ``build_model`` reads: an
-    unported family raises instead of building a Transformer."""
-    from repro_torch.configs.base import ModelConfig
+    ``init_params``) reads the family map ``build_model`` reads: the
+    enc-dec family gets its own module, not a Transformer; the map covers
+    every family a config may name."""
+    from repro_torch.configs.base import FAMILIES, ModelConfig
+    from repro_torch.models.model import _FAMILY_MODULES
     cfg = ModelConfig(**dataclasses.asdict(jax_get_config(arch)))
-    if want is NotImplementedError:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            params_class(cfg)
-    else:
-        assert params_class(cfg) is want
+    assert params_class(cfg) is want
+    assert sorted(_FAMILY_MODULES) == sorted(FAMILIES)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
