@@ -38,7 +38,8 @@ Phases, each fatal on failure:
 4. reference: feed the same prompt and the generated tokens (teacher
    forcing) through the plain path (``backend="torch"``) and compare the
    logits of every step;
-5. fan-out, for qwen1.5-0.5b and then mamba2-130m: ``serve.main`` with
+5. fan-out, for qwen1.5-0.5b, mamba2-130m and then zamba2-1.2b
+   (2.18 GB a slot): ``serve.main`` with
    ``--faasm-requests 64 --state-wire int8``: every request a Faaslet
    call of the port's runtime that copies its parameters from pinned
    leaves into an executor slot's buffers and replays that slot's
@@ -46,9 +47,12 @@ Phases, each fatal on failure:
    over the int8 wire (K1), counters zeroed just before; every request
    must succeed; the launches are held exactly: the serving loop's
    warm-up and the fan-out's warm-ups before each capture read apart,
-   one forward's launches (K5 24, or K8 24) per replay, one replay per
-   call and one for the build, K1 once per push; the stats equal the
-   token histogram within the int8 bound, the tokens the plain path's
+   one forward's launches (K5 24, or K8 24, or K8 38 and K5 7) per
+   replay, one replay per call and one for the build, K1 once per push;
+   the stats equal the token histogram within the int8 bound and their
+   sum the calls, no count lost; how a call's serve/stats time divides
+   into pulls, int8 push and the rest is read from the wire spans of the
+   wave's calls; the tokens the plain path's
    argmax (one forward per prompt, as the fan-out runs it) in at least
    90% of the requests and the kernel path's eager forward bitwise in
    all; req/s, p50/p99, the per-call copy (CUDA events on the slot's
@@ -73,7 +77,16 @@ Phases, each fatal on failure:
    Fig. 9 twin (K1-K3 and K5-K8 at the reference's fixed f32 shapes, each
    held against its plain version, its launches exact); the Tab. 3 /
    Fig. 10 twin's rows with K1 counted per wire section; the dispatch
-   twin with its floors reported, not held;
+   twin with its floors reported, not held; then the chaos scenarios of
+   ``tests/test_chaos.py`` with the tiers and runtime on the card: the
+   chaos matrix's storms (seeds 0-2; two pushers, a subscriber and a
+   polling puller under ``FaultPlan.random``), the global value the
+   exact fault-free sum and every replica equal to it after one repair
+   pull; one storm on the int8 wire at a 4,096-float key, within the
+   int8 bound, K1 exactly once per int8 encode the wire spans record
+   and K2 once per frame the puller's device replica took; a host
+   killed mid-fan-out, every increment exactly once; and the codec-error
+   fallback, the exact value with no K1 launch for the failed encode;
 7. timing: each kernel's device time per call at the main path's shapes
    (K5 and K8 also at the fan-out's (1, 16) forward)
    (torch.profiler's CUDA trace; back-to-back call time by CUDA events is
@@ -232,7 +245,8 @@ taken in turn), times each of its bf16 kernels forced at those shapes and
 at a sweep of T (the evidence for the wrapper's threshold between them)
 with its host time per call, and stops.  ``python3 chip_smoke.py
 fanout`` builds, holds K5 and K8 against their plain versions, runs
-phase 5 and times K5 and K8 at the fan-out's shape, and stops.  ``python3
+phase 5 and times K5 and K8 at the fan-outs' shapes (and K6 at
+zamba2-1.2b's fan-out run's decode step), and stops.  ``python3
 chip_smoke.py
 decode`` holds the attention kernels against their plain versions, times
 K6 at the five served decode shapes beside SDPA (on one cache, and over
@@ -244,7 +258,8 @@ runs phases 15 and 16 and stops.  ``python3 chip_smoke.py gqa``
 builds, holds the attention kernels and runs phase 14 alone;
 ``python3 chip_smoke.py families`` the same for phase 17.  ``python3
 chip_smoke.py paper`` builds, holds K1-K4 and runs the paper phase
-(phase 6's second half) alone.  ``python3 chip_smoke.py profile`` serves each of
+(phase 6's second half) alone; ``python3 chip_smoke.py chaos`` the same
+for the chaos scenarios.  ``python3 chip_smoke.py profile`` serves each of
 the four models and prints the device time of one prefill and of one
 decode step (profiler, two runs each) and the wall of each, of the eager
 loop and, where the launcher has step graphs, of their replays, and
@@ -305,6 +320,10 @@ FIG8_N, FIG8_SPLITS = 2048, (2, 4)
 STATS_NUMEL = 151_936                       # serve/stats: the vocabulary
 SP_BIG = 16 << 20                           # the state-push timing's 16 Mi
 INT8_STEP = 1.01 / 127                      # int8 bound per unit push
+# the chaos phase: tests/test_chaos.py's smoke seeds and storm length, and
+# the int8 storm's key (16 KiB, above INT8_WIRE_MIN_BYTES)
+CHAOS_SEEDS, CHAOS_ITERS, CHAOS_INT8_NUMEL = (0, 1, 2), 6, 4096
+CHAOS_KEY = "w"
 # H100 SXM published peaks (NVIDIA H100 datasheet)
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12                    # the main path runs in bf16
@@ -332,12 +351,14 @@ FLASH_CASES = [
     (4, 512, 512, 6, 6, 64, True, 0),        # whisper-tiny's decoder: H 6
     (4, 512, 1500, 6, 6, 64, False, 0),      # whisper-tiny's cross-attention
     (4, 768, 768, 16, 8, 128, True, 0),      # internvl2-2b's prefill: G 2
+    (1, 16, 16, 32, 32, 64, True, 0),        # zamba2-1.2b's fan-out forward
 ]
 # the bf16 parity case (causal, Sq = Sk = S, no offset), keyed (B, S, H,
 # K, D), whose error the timing rows of K5 at that shape report
 FLASH_ROWS = {
     (4, 512, 16, 16, 64): ("flash_attention",),
     (1, 16, 16, 16, 64): ("flash_attention[fan-out]",),
+    (1, 16, 32, 32, 64): (f"flash_attention[fan-out {SSM_ARCHS[1]}]",),
     (4, 512, 16, 16, 128): (f"flash_attention[{MOE_ARCH}]",),
     (4, 512, 32, 32, 64): (f"flash_attention[{SSM_ARCHS[1]}]",),
     (4, 512, 32, 8, 128): tuple(f"flash_attention[{a}]"
@@ -370,6 +391,7 @@ DECODE_CASES = [
     (4, 544, 6, 6, 64, (513, 530, 543, 544)),    # whisper-tiny's self-attention
     (4, 1500, 6, 6, 64, (1500,) * 4),            # its cross-attention: full
     (4, 800, 16, 8, 128, (769, 780, 799, 800)),  # internvl2-2b's: G 2, D 128
+    (1, 18, 32, 32, 64, (17,)),      # zamba2-1.2b's fan-out run's serving loop
 ]
 # the bf16 parity case, keyed (B, S, H, K, D), whose error the timing rows
 # of K6 at that shape report
@@ -383,6 +405,7 @@ DECODE_ROWS = {
     (4, 544, 6, 6, 64): (f"decode_attention[{FAMILY_ARCHS[0]}]",),
     (4, 1500, 6, 6, 64): (f"decode_attention[{FAMILY_ARCHS[0]} cross]",),
     (4, 800, 16, 8, 128): (f"decode_attention[{FAMILY_ARCHS[1]}]",),
+    (1, 18, 32, 32, 64): (f"decode_attention[fan-out {SSM_ARCHS[1]}]",),
 }
 
 
@@ -787,6 +810,7 @@ SSD_CASES = [
     ("16 chunks", 1, 4096, 8, 64, 1, 64, True),
     ("G 2", 2, 300, 8, 32, 2, 32, True),
     ("mamba2-130m fan-out", 1, 16, 24, 64, 1, 128, False),
+    ("zamba2-1.2b fan-out", 1, 16, 64, 64, 1, 64, False),
 ]
 
 
@@ -882,12 +906,13 @@ def phase_parity_ssd() -> dict:
                     SSD_TOL["float32"] if decays != "model" else tol)
         check_close(what + ", y vs oracle", y, yr, tol)
         if dtype == torch.bfloat16 and decays == "reference":
-            if name == "mamba2-130m prefill":
-                errs["ssd_scan"] = err
-            elif name.startswith("zamba2"):
-                errs["ssd_scan[zamba2-1.2b]"] = err
-            elif name.endswith("fan-out"):
-                errs["ssd_scan[fan-out]"] = err
+            row = {"mamba2-130m prefill": "ssd_scan",
+                   "zamba2-1.2b prefill": "ssd_scan[zamba2-1.2b]",
+                   "mamba2-130m fan-out": "ssd_scan[fan-out]",
+                   "zamba2-1.2b fan-out":
+                       f"ssd_scan[fan-out {SSM_ARCHS[1]}]"}.get(name)
+            if row is not None:
+                errs[row] = err
     return errs
 
 
@@ -1227,24 +1252,49 @@ def phase_timing_decode(res, launches: int, errs) -> list:
     return [row]
 
 
-def phase_timing_fanout(qwen_launches, ssm_launches, errs) -> list:
-    """K5 and K8 at the fan-out's (1, 16) forward (qwen1.5-0.5b's and
-    mamba2-130m's), with each fan-out's launches (its warm-ups and
-    replays)."""
-    from repro_torch.configs import get_config
-    return phase_timing_fanout_flash(qwen_launches["flash_attention"],
-                                     errs) + phase_timing_ssd(
-        {"cfg": get_config(SSM_ARCHS[0])}, ssm_launches["ssd_scan"], errs,
-        Bt=1, S=16, name="ssd_scan[fan-out]")
-
-
-def phase_timing_fanout_flash(launches: int, errs) -> list:
-    """K5 at the qwen fan-out's (1, 16) forward."""
+def phase_timing_fanout(qwen_launches, ssm_launches, hybrid, errs) -> list:
+    """K5 and K8 at the fan-out's (1, 16) forward (qwen1.5-0.5b's,
+    mamba2-130m's and zamba2-1.2b's), with each fan-out's launches (its
+    warm-ups and replays), and K6 at the decode step of the serving loop
+    that zamba2-1.2b's fan-out run serves first (B 1, a cache of 18),
+    with that loop's launches.  ``hybrid`` is zamba2-1.2b's
+    ``phase_fanout`` result."""
     import torch
     from repro_torch.configs import get_config
-    cfg = get_config(ARCH)
+    rows = phase_timing_fanout_flash(qwen_launches["flash_attention"], errs)
+    rows += phase_timing_ssd({"cfg": get_config(SSM_ARCHS[0])},
+                             ssm_launches["ssd_scan"], errs, Bt=1, S=16,
+                             name="ssd_scan[fan-out]")
+    r, launches = hybrid
+    cfg = get_config(SSM_ARCHS[1])
     H, K, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    name = "flash_attention[fan-out]"
+    rows += phase_timing_fanout_flash(launches["flash_attention"], errs, cfg)
+    rows += phase_timing_ssd({"cfg": cfg}, launches["ssd_scan"], errs, Bt=1,
+                             S=16, name=f"ssd_scan[fan-out {cfg.name}]")
+    name = f"decode_attention[fan-out {cfg.name}]"
+    g = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    row, back_to_back, how, per_call, note = _decode_row(
+        name, 1, 18, H, K, D, {name: r["loop_launches"]["decode_attention"]},
+        errs, g)
+    log(f"timing, K6 at {cfg.name}'s fan-out run's decode step (B 1 S 18 H "
+        f"{H} K {K} D {D}): {row['ms'] * 1e3:.2f}us device, "
+        f"{back_to_back * 1e3:.1f}us back-to-back, bound "
+        f"{row['bound_ms'] * 1e3:.2f}us ({row['bound_by']}), plain "
+        f"{row['plain_ms'] * 1e3:.1f}us, library "
+        f"{row['library_ms'] * 1e3:.2f}us (SDPA, masked; by the {how}), "
+        f"launches {row['launches']}; kernels per call: {per_call}{note}")
+    return rows + [row]
+
+
+def phase_timing_fanout_flash(launches: int, errs, cfg=None) -> list:
+    """K5 at the fan-out's (1, 16) forward, qwen1.5-0.5b's unless ``cfg``
+    (zamba2-1.2b's shared block)."""
+    import torch
+    from repro_torch.configs import get_config
+    cfg = cfg or get_config(ARCH)
+    H, K, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    name = ("flash_attention[fan-out]" if cfg.name == ARCH
+            else f"flash_attention[fan-out {cfg.name}]")
     g = torch.Generator(device="cuda").manual_seed(SEED + 10)
     row, back_to_back, how, _ = _flash_row(name, 1, 16, H, K, D,
                                            {name: launches}, errs, g)
@@ -1353,8 +1403,40 @@ def phase_parity_state_push() -> dict:
 
 def _per_forward(cfg) -> dict:
     """The kernels one (1, 16) forward of ``cfg`` launches: K5 once per
-    attention layer, K8 once per Mamba layer."""
-    return {"ssd_scan" if cfg.ssm_state else "flash_attention": cfg.n_layers}
+    attention layer, K8 once per Mamba layer, and the hybrid's K5 once
+    per application of its shared block."""
+    from repro_torch.models.ssm_stack import n_attn_apps
+    if not cfg.ssm_state:
+        return {"flash_attention": cfg.n_layers}
+    apps = n_attn_apps(cfg)
+    return {"ssd_scan": cfg.n_layers, **({"flash_attention": apps}
+                                         if apps else {})}
+
+
+def _stats_split(spans, stats_ms: float, calls: int) -> str:
+    """How the wave's mean serve/stats time a call divides, from the wire
+    spans of its last ``calls`` calls: the pulls (``wire.pull`` and
+    ``wire.full_pull``, the tier's catch-up included), the int8 push
+    (``wire.push``: the replica lock's wait, the encode and the apply),
+    and the rest (the add, the handle's set-up, and the waits for the
+    replica lock that a pull span does not cover)."""
+    by_call = {}
+    for x in spans:
+        if x.call is not None and x.name in ("wire.pull", "wire.full_pull",
+                                             "wire.push"):
+            by_call.setdefault(x.call, []).append(x)
+    wave = sorted(by_call)[-calls:]
+    pull = sum(x.dur for c in wave for x in by_call[c]
+               if x.name != "wire.push") * 1e3 / max(len(wave), 1)
+    push = sum(x.dur for c in wave for x in by_call[c]
+               if x.name == "wire.push") * 1e3 / max(len(wave), 1)
+    full = sum(1 for c in wave for x in by_call[c]
+               if x.name == "wire.full_pull")
+    return (f"serve/stats {stats_ms:.2f}ms a call = pull {pull:.2f}ms "
+            f"({full} full pulls or catch-ups in {len(wave)} calls) + int8 "
+            f"push {push:.2f}ms + add and the rest "
+            f"{stats_ms - pull - push:.2f}ms (wire spans of the wave's "
+            f"calls)")
 
 
 def _times(lat_ms) -> str:
@@ -1435,6 +1517,7 @@ def phase_fanout(arch: str) -> tuple:
     (the fan-out's dict, its launches less the serving loop's)."""
     import numpy as np
     import torch
+    from repro_torch import telemetry
     from repro_torch.launch import serve
     from repro_torch.launch.call_graphs import CallGraphs
     from repro_torch.models import ExecConfig, build_model
@@ -1442,20 +1525,26 @@ def phase_fanout(arch: str) -> tuple:
         f"tokens, serve/stats on the int8 wire, each call a replay")
     t0 = time.perf_counter()
     reset_launches()
-    res = serve.main(["--arch", arch, "--batch", "1", "--prompt-len", "16",
-                      "--new-tokens", "2", "--faasm-requests",
-                      str(FANOUT_REQUESTS), "--state-wire", "int8",
-                      "--device", "cuda", "--seed", str(SEED)])
-    torch.cuda.synchronize()
+    tel = telemetry.enable()
+    tel.take()
+    try:
+        res = serve.main(["--arch", arch, "--batch", "1", "--prompt-len",
+                          "16", "--new-tokens", "2", "--faasm-requests",
+                          str(FANOUT_REQUESTS), "--state-wire", "int8",
+                          "--device", "cuda", "--seed", str(SEED)])
+        torch.cuda.synchronize()
+        spans = tel.take()
+    finally:
+        telemetry.disable()
     total = read_launches()
     cfg, r = res["cfg"], res["faasm"]
     counters = launch_counters()
     zero = {k: 0 for k in counters}
+    per_fwd = dict(zero, **_per_forward(cfg))
     # the serving loop at batch 1: its warm-up (one prefill and one decode
-    # step) and its replays (one prefill, one decode step) launch alike
-    per_step = dict(zero, **_per_forward(cfg))
-    if not cfg.ssm_state:
-        per_step["decode_attention"] = cfg.n_layers
+    # step) and its replays (one prefill, one decode step) launch alike;
+    # a decode step runs K6 wherever the prefill runs K5
+    per_step = dict(per_fwd, decode_attention=per_fwd["flash_attention"])
     loop_warm = {k: res["graphs"].warmup_launches.count(c)
                  for k, c in counters.items()}
     fan_warm = {k: r["warmup_launches"].count(c) for k, c in counters.items()}
@@ -1464,7 +1553,6 @@ def phase_fanout(arch: str) -> tuple:
         f"fan-out's {r['captures']} warm-ups before capture {fan_warm}")
     if loop_warm != per_step:
         raise AssertionError(f"serving loop warm-up launches {loop_warm}")
-    per_fwd = dict(zero, **_per_forward(cfg))
     if fan_warm != {k: n * r["captures"] for k, n in per_fwd.items()}:
         raise AssertionError(f"fan-out warm-up launches {fan_warm}")
     if r["shed"] or r["deadline_expired"] or None in r["tokens"]:
@@ -1490,10 +1578,15 @@ def phase_fanout(arch: str) -> tuple:
     hist = np.bincount(tokens, minlength=cfg.vocab_size).astype(np.float32)
     err = float(np.abs(r["stats"] - hist).max())
     bound = calls * INT8_STEP
+    lost = calls - float(r["stats"].sum())
     log(f"  serve/stats vs the histogram of the {calls} returned tokens: "
-        f"max |err| {err:.3e} (int8 bound {bound:.3e})")
-    if r["stats"].shape != (cfg.vocab_size,) or err > bound:
-        raise AssertionError(f"serve/stats off the token histogram by {err}")
+        f"max |err| {err:.3e}, {calls} counts less the sum {lost:.3e} "
+        f"(int8 bound {bound:.3e}: no count lost)")
+    if r["stats"].shape != (cfg.vocab_size,) or err > bound or \
+            abs(lost) > bound:
+        raise AssertionError(f"serve/stats off the token histogram by "
+                             f"{err}, its sum by {lost}")
+    log("  " + _stats_split(spans, r["stats_ms"], FANOUT_REQUESTS))
     # each prompt's token by one (1, 16) forward on the card, as a call
     # runs it: the plain path's argmax (a batched forward would round its
     # GEMMs apart), and the kernel path's eager forward, which the
@@ -1549,6 +1642,7 @@ def phase_fanout(arch: str) -> tuple:
     gc.collect()
     torch.cuda.empty_cache()
     log(f"  fan-out {arch} in {time.perf_counter() - t0:.1f}s")
+    r["loop_launches"] = {k: loop_warm[k] + per_step[k] for k in total}
     return r, {k: total[k] - loop_warm[k] - per_step[k] for k in total}
 
 
@@ -1804,6 +1898,262 @@ def phase_paper() -> dict:
         f"{rs[1]['p99_ms']:.3f}ms, batch {rs[1]['speedup']:.2f}x")
     _add(total, read_launches())
     log(f"  paper phase in {time.perf_counter() - t_phase:.1f}s; launches "
+        f"{ {k: n for k, n in total.items() if n} }")
+    return total
+
+
+def _chaos_view(tier, key: str = CHAOS_KEY):
+    import numpy as np
+    return tier.replica(key).buf.view(np.float32)
+
+
+def chaos_storm(seed: int, n: int = 256, wire: str = "exact",
+                n_iters: int = CHAOS_ITERS, device: str = "cuda") -> dict:
+    """``tests/test_chaos.py``'s storm with the tiers on ``device``: two
+    pusher tiers, a broadcast subscriber and a polling puller under
+    ``FaultPlan.random(seed)``, each pusher adding 1 to its own element
+    and pushing ``n_iters`` times.  On the exact wire the global value
+    must be the fault-free sum exactly and every replica equal to it
+    after one repair pull.  On the int8 wire (``n`` at least
+    ``INT8_WIRE_MIN_BYTES / 4``) every push encodes on the card (K1) and
+    the puller holds a device replica, synced after each of its int8
+    delta pulls, so every frame it pulls is applied on the card (K2): the
+    global value and every replica (the device one too) within the int8
+    bound of the sum, K1 launched exactly once per int8 encode the wire
+    spans record (pushes and pulls), K2 once per int8 frame the puller
+    pulled, and each injected codec error a push that fell back to the
+    exact wire with no K1 launch.  Raises on any failure; returns the
+    plan's fired faults and the launches."""
+    import threading
+    import numpy as np
+    import torch
+    from repro_torch import faults, telemetry
+    from repro_torch.state.kv import GlobalTier
+    from repro_torch.state.local import LocalTier
+    gt = GlobalTier(device=device)
+    gt.set(CHAOS_KEY, np.zeros(n, np.float32).tobytes(), host="seed")
+    pushers = []
+    for i in range(2):
+        t = LocalTier(f"push{i}", gt)
+        t.pull(CHAOS_KEY)
+        t.snapshot_base(CHAOS_KEY)
+        pushers.append(t)
+    sub = LocalTier("sub", gt)
+    sub.pull(CHAOS_KEY)
+    sub.subscribe(CHAOS_KEY)
+    puller = LocalTier("puller", gt)
+    puller.pull(CHAOS_KEY)
+    quant = wire != "exact"
+    if quant:
+        puller.to_device(CHAOS_KEY)
+    stop, errors = threading.Event(), []
+
+    def push_loop(t, slot):
+        try:
+            for _ in range(n_iters):
+                _chaos_view(t)[slot] += 1.0
+                t.push_delta(CHAOS_KEY, wire=wire)
+        except Exception as e:
+            errors.append(e)
+
+    def pull_loop():
+        try:
+            while not stop.is_set():
+                puller.pull(CHAOS_KEY, wire=wire if quant else None)
+                if quant:
+                    puller.to_device(CHAOS_KEY)
+                time.sleep(0.001)
+        except Exception as e:
+            errors.append(e)
+
+    tel = telemetry.enable()
+    tel.take()
+    reset_launches()
+    try:
+        with faults.armed(faults.FaultPlan.random(seed)) as plan:
+            threads = [threading.Thread(target=push_loop, args=(t, i))
+                       for i, t in enumerate(pushers)]
+            pt = threading.Thread(target=pull_loop)
+            for th in threads + [pt]:
+                th.start()
+            for th in threads:
+                th.join(timeout=60)
+            stop.set()
+            pt.join(timeout=60)
+            gt.flush_broadcasts()
+        if errors:
+            raise AssertionError(f"storm {seed} ({wire}): {errors!r}")
+        want = np.zeros(n, np.float32)
+        want[0] = want[1] = n_iters
+        got = np.frombuffer(gt.get(CHAOS_KEY, host="check"), np.float32)
+        bound = 2 * n_iters * INT8_STEP if quant else 0.0
+        err = float(np.abs(got - want).max())
+        if err > bound:
+            raise AssertionError(f"storm {seed} ({wire}): the global value "
+                                 f"is {err} off the sum (bound {bound})")
+        for t in (sub, puller, *pushers):
+            t.pull(CHAOS_KEY, wire=wire if quant else None)
+            e = float(np.abs(_chaos_view(t)[:n] - got).max())
+            if e > bound:
+                raise AssertionError(f"storm {seed} ({wire}): {t.host_id} "
+                                     f"{e} off after a repair pull")
+        if quant:
+            dev = puller.to_device(CHAOS_KEY)
+            e = float((dev.cpu() - torch.from_numpy(got.copy())).abs().max())
+            if dev.device.type != device or e > bound:
+                raise AssertionError(f"storm {seed}: the device replica "
+                                     f"{e} off on {dev.device}")
+        if device == "cuda":
+            torch.cuda.synchronize()
+        launches = read_launches()
+        spans = tel.take()
+    finally:
+        telemetry.disable()
+    pushes, pulls = _wire_encodes(spans)
+    applied = sum(1 for x in spans if x.name == "wire.pull"
+                  and x.tags.get("wire") == "int8"
+                  and x.tags.get("puller") == "puller")
+    fallbacks = sum(t.codec_fallbacks for t in pushers)
+    fired = {p: plan.fired(p) for p in sorted({r.point for r in plan.rules})}
+    out = {"fired": fired, "pushes": pushes, "pulls": pulls,
+           "applied": applied, "fallbacks": fallbacks, "err": err,
+           "launches": launches}
+    if fallbacks != plan.fired("codec-error"):
+        raise AssertionError(f"storm {seed}: {fallbacks} codec fallbacks, "
+                             f"{plan.fired('codec-error')} codec errors")
+    if quant and device == "cuda":
+        k1 = launches["state_push.quantize_delta"]
+        k2 = launches["state_push.apply_delta"]
+        if k1 != pushes + pulls or k2 != applied or not pushes:
+            raise AssertionError(f"storm {seed}: K1 {k1} for {pushes} + "
+                                 f"{pulls} int8 encodes, K2 {k2} for "
+                                 f"{applied} int8 frames pulled")
+    return out
+
+
+def chaos_kill_during_fanout(device: str = "cuda") -> dict:
+    """``test_runtime_chaos_kill_during_fanout`` with the runtime on
+    ``device``: 8 increments under ``FaultPlan.random(11)`` and a host
+    killed mid-wave; each must land exactly once.  Returns the kernel
+    launches of the scenario."""
+    import numpy as np
+    import torch
+    from repro_torch import faults
+    from repro_torch.core import FaasmRuntime, FunctionDef
+    from repro_torch.state.ddo import VectorAsync
+    reset_launches()
+    rt = FaasmRuntime(n_hosts=3, capacity=1, backoff=0.001, device=device)
+    try:
+        VectorAsync.create(rt.global_tier, CHAOS_KEY,
+                           np.zeros(8, np.float32))
+
+        def inc(api):
+            time.sleep(0.01)
+            v = VectorAsync(api, CHAOS_KEY)
+            v.pull(track_delta=True)
+            v.add(0, 1.0)
+            v.push_delta(wire="exact")
+            return 0
+
+        rt.upload(FunctionDef("inc", inc))
+        with faults.armed(faults.FaultPlan.random(11)):
+            cids = rt.invoke_many("inc", [b""] * 8, state_hint=[CHAOS_KEY])
+            deadline = time.monotonic() + 5.0
+            victim = None
+            while victim is None and time.monotonic() < deadline:
+                victim = next((h for h in rt.alive_hosts()
+                               if h._inflight > 0), None)
+            if victim is None:
+                raise AssertionError("kill during fan-out: no busy host")
+            rt.fail_host(victim.id)
+            rcs = rt.wait_all(cids, timeout=60)
+        got = float(np.frombuffer(rt.global_tier.get(CHAOS_KEY, host="c"),
+                                  np.float32)[0])
+        attempts = [rt.call(c).attempts for c in cids]
+    finally:
+        rt.shutdown()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    log(f"  kill during fan-out: host {victim.id} failed, return codes "
+        f"{rcs}, attempts {attempts}, global {got} (want 8.0)")
+    if rcs != [0] * 8 or got != 8.0:
+        raise AssertionError(f"kill during fan-out: {rcs}, global {got}")
+    return read_launches()
+
+
+def chaos_codec_fallback(device: str = "cuda") -> dict:
+    """``test_codec_error_falls_back_to_exact_wire`` on ``device``: an
+    injected codec error on an int8 push re-pushes the same delta on the
+    exact wire under the same fence token, with no K1 launch counted;
+    the landed value is exact, and the token cannot be replayed.  An
+    int8 push after it launches K1 once.  Returns the kernel launches of
+    the scenario."""
+    import numpy as np
+    import torch
+    from repro_torch import faults
+    from repro_torch.state.kv import GlobalTier
+    from repro_torch.state.local import INT8_WIRE_MIN_BYTES, LocalTier
+    n = INT8_WIRE_MIN_BYTES // 4
+    gt = GlobalTier(device=device)
+    gt.set(CHAOS_KEY, np.zeros(n, np.float32).tobytes(), host="seed")
+    p = LocalTier("push0", gt)
+    p.pull(CHAOS_KEY)
+    p.snapshot_base(CHAOS_KEY)
+    _chaos_view(p)[:] += 1.0
+    reset_launches()
+    with faults.armed(faults.FaultPlan(seed=7).add("codec-error")) as plan:
+        moved = p.push_delta(CHAOS_KEY, wire="int8", fence=("cc", 1, 1))
+    if device == "cuda":
+        torch.cuda.synchronize()
+    k1 = read_launches()["state_push.quantize_delta"]
+    got = np.frombuffer(gt.get(CHAOS_KEY, host="c"), np.float32)
+    _chaos_view(p)[:] += 1.0
+    replayed = p.push_delta(CHAOS_KEY, wire="exact", fence=("cc", 1, 1))
+    after = np.frombuffer(gt.get(CHAOS_KEY, host="c"), np.float32)
+    _chaos_view(p)[:] += 1.0
+    p.push_delta(CHAOS_KEY, wire="int8")
+    if device == "cuda":
+        torch.cuda.synchronize()
+    k1_next = read_launches()["state_push.quantize_delta"] - k1
+    log(f"  codec fallback: fired {plan.fired('codec-error')}, fallbacks "
+        f"{p.codec_fallbacks}, {moved} B on the exact wire, K1 {k1} for the "
+        f"failed encode and {k1_next} for the next int8 push; a replayed "
+        f"token moved {replayed} B")
+    if (plan.fired("codec-error") != 1 or p.codec_fallbacks != 1
+            or moved <= 0 or k1 != 0 or k1_next != 1 or replayed != 0
+            or not np.array_equal(got, np.ones(n, np.float32))
+            or not np.array_equal(after, got)):
+        raise AssertionError("codec fallback did not hold")
+    return read_launches()
+
+
+def phase_chaos() -> dict:
+    """The chaos suite's scenarios with the tiers and runtime on the card:
+    the matrix's storms (seeds 0-2) on the exact wire, one storm on the
+    int8 wire at a 4,096-float key (K1, K2), a host killed mid-fan-out and
+    the codec-error fallback.  Returns the kernel launches of the phase."""
+    t0 = time.perf_counter()
+    total = {}
+    log(f"chaos: storms {CHAOS_SEEDS} (256 floats, exact wire), one at "
+        f"{CHAOS_INT8_NUMEL} floats on the int8 wire, tiers on the card")
+    for seed in CHAOS_SEEDS:
+        r = chaos_storm(seed)
+        _add(total, r["launches"])
+        log(f"  storm {seed} (exact): faults fired {r['fired']}; the global "
+            f"value the exact sum, every replica equal after a repair pull")
+    r = chaos_storm(CHAOS_SEEDS[0], CHAOS_INT8_NUMEL, "int8")
+    _add(total, r["launches"])
+    log(f"  storm {CHAOS_SEEDS[0]} (int8): faults fired {r['fired']}; "
+        f"global max |err| {r['err']:.3e} (bound "
+        f"{2 * CHAOS_ITERS * INT8_STEP:.3e}); int8 encodes {r['pushes']} "
+        f"pushed + {r['pulls']} pulled, K1 "
+        f"{r['launches']['state_push.quantize_delta']}; {r['applied']} int8 "
+        f"frames pulled into the device replica, K2 "
+        f"{r['launches']['state_push.apply_delta']}; {r['fallbacks']} codec "
+        f"fallbacks")
+    _add(total, chaos_kill_during_fanout())
+    _add(total, chaos_codec_fallback())
+    log(f"  chaos phase in {time.perf_counter() - t0:.1f}s; launches "
         f"{ {k: n for k, n in total.items() if n} }")
     return total
 
@@ -3641,10 +3991,10 @@ def main(argv) -> int:
     mode = argv[0] if argv else None
     if mode not in (None, "parity", "flash", "gmm", "decode", "ssd",
                     "profile", "fanout", "train", "gqa", "paper",
-                    "families") or len(argv) > 1:
+                    "families", "chaos") or len(argv) > 1:
         print(f"chip_smoke: arguments {argv}: none, or one of parity, flash, "
               f"gmm, decode, ssd, profile, fanout, train, gqa, paper, "
-              f"families", file=sys.stderr)
+              f"families, chaos", file=sys.stderr)
         return 2
     parity_only = mode == "parity"        # a new kernel's first, short run
     flash_only = mode == "flash"          # K5 alone: A/B of its designs
@@ -3706,11 +4056,18 @@ def main(argv) -> int:
         errs.update(phase_parity_ssd())
         qwen = phase_fanout(ARCH)[1]
         ssm = phase_fanout(SSM_ARCHS[0])[1]
+        hybrid = phase_fanout(SSM_ARCHS[1])
         phase_fig7()
-        phase_timing_fanout(qwen, ssm, errs)
+        phase_timing_fanout(qwen, ssm, hybrid, errs)
+        log(f"chip_smoke: {time.perf_counter() - t0:.1f}s")
         log(smi)
         return 0
     errs.update(phase_parity_state_push())
+    if mode == "chaos":                   # the chaos scenarios alone
+        phase_chaos()
+        log(f"chip_smoke: {time.perf_counter() - t0:.1f}s")
+        log(smi)
+        return 0
     if mode == "paper":                   # the paper's experiments alone
         phase_paper()
         log(f"chip_smoke: {time.perf_counter() - t0:.1f}s")
@@ -3725,21 +4082,27 @@ def main(argv) -> int:
     phase_reference(res)
     _, fanout_launches = phase_fanout(ARCH)
     _, ssm_fanout_launches = phase_fanout(SSM_ARCHS[0])
+    hybrid = phase_fanout(SSM_ARCHS[1])
     phase_fig7()
     plane_launches = phase_device_plane()
     paper_launches = phase_paper()
+    chaos_launches = phase_chaos()
     # each kernel's launches from the runs of its paths: K5/K6 the serve
-    # loop, K1 the fan-out and the paper phase, K2 the device plane and
-    # the paper phase (its Fig. 9 twin), K3 the Fig. 9 twin alone; K4 (the
-    # fp8 wire tier, which needs ml_dtypes) is on no path
-    for key, parts in (("state_push.quantize_delta", (fanout_launches,
-                                                      paper_launches)),
+    # loop, K1 the three fan-outs, the paper and the chaos phases, K2 the
+    # device plane, the paper phase (its Fig. 9 twin) and the chaos
+    # phase, K3 the Fig. 9 twin alone; K4 (the fp8 wire tier, which needs
+    # ml_dtypes) is on no path
+    fanouts = (fanout_launches, ssm_fanout_launches, hybrid[1])
+    for key, parts in (("state_push.quantize_delta",
+                        fanouts + (paper_launches, chaos_launches)),
                        ("state_push.apply_delta", (plane_launches,
-                                                   paper_launches)),
+                                                   paper_launches,
+                                                   chaos_launches)),
                        ("state_push.push", (paper_launches,))):
         launches[key] = sum(p.get(key, 0) for p in parts)
     rows = phase_timing(res, launches, errs)
-    rows += phase_timing_fanout(fanout_launches, ssm_fanout_launches, errs)
+    rows += phase_timing_fanout(fanout_launches, ssm_fanout_launches, hybrid,
+                                errs)
     rows += phase_timing_state_push(launches, errs)
     phase_warm_serve(res)
     free_model(res)               # the qwen model leaves the card

@@ -203,7 +203,8 @@ class FaasmAPI:
         r = lt.replica(key, size=len(value))
         r.lock.acquire_write()
         try:
-            r.buf[:len(value)] = np.frombuffer(value, np.uint8)
+            with r.buf_lock:
+                r.buf[:len(value)] = np.frombuffer(value, np.uint8)
             r.full = True
             r.present_chunks = set(range(self.runtime.global_tier.n_chunks(key)
                                          if self.runtime.global_tier.exists(key)
@@ -219,7 +220,9 @@ class FaasmAPI:
         r = lt.replica(key, size=offset + len(value))
         r.lock.acquire_write()
         try:
-            r.buf[offset:offset + len(value)] = np.frombuffer(value, np.uint8)
+            with r.buf_lock:
+                r.buf[offset:offset + len(value)] = np.frombuffer(value,
+                                                                  np.uint8)
         finally:
             r.lock.release_write()
         lt.mark_dirty(key, offset, len(value))

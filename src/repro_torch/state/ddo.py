@@ -120,7 +120,15 @@ class VectorAsync:
         self.key = key
         meta = _read_meta(api, key)
         self.shape = tuple(meta["shape"])
-        raw = api.get_state(key, writable=True)      # maps the shared region
+        self._map()
+
+    def _map(self) -> None:
+        """Map the shared region and keep the replica that backs it: its
+        buffer mutex guards this handle's writes.  Held, not looked up on
+        each write, so a write after the replica was dropped (host failure)
+        fails in ``mark_dirty`` instead of dirtying a fresh empty one."""
+        raw = self.api.get_state(self.key, writable=True)
+        self._replica = self.api._local().replica(self.key)
         self._view = raw.view(np.float32)[:int(np.prod(self.shape))]
 
     @property
@@ -131,12 +139,17 @@ class VectorAsync:
         return self._view[i]
 
     def __setitem__(self, i, v):
-        self._view[i] = v
+        with self._replica.buf_lock:
+            self._view[i] = v
         self.api._local().mark_dirty(self.key, 0, self._view.nbytes)
 
     def add(self, idx, delta) -> None:
-        """Unlocked accumulate (HOGWILD) through the shared-region pointer."""
-        np.add.at(self._view, idx, delta)
+        """Accumulate (HOGWILD) through the shared-region pointer.  No
+        replica lock: only the buffer mutex, for the one numpy write, so
+        two adds (or an add and a tier-side move of the buffer) never
+        interleave and no count is lost."""
+        with self._replica.buf_lock:
+            np.add.at(self._view, idx, delta)
         self.api._local().mark_dirty(self.key, 0, self._view.nbytes)
 
     def _flush_if_copy(self) -> None:
@@ -167,8 +180,7 @@ class VectorAsync:
         subscribed via :meth:`subscribe` is typically already current and
         the pull moves zero bytes."""
         self.api.pull_state(self.key, track_delta=track_delta, wire=wire)
-        raw = self.api.get_state(self.key, writable=True)
-        self._view = raw.view(np.float32)[:int(np.prod(self.shape))]
+        self._map()
 
     def subscribe(self) -> None:
         """Subscribe the host replica to peer push fan-out (Cloudburst-style

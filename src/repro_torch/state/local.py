@@ -22,6 +22,32 @@ replica's write version — every host-side mutation (``mark_dirty``, pull)
 bumps ``Replica.version``; the device copy records the version it was
 synced at, so a stale device array is never silently pushed.
 
+Lock order: the tier's ``"tier"`` mutex guards only its maps and is
+never held across a replica lock.  A replica's ``RWLock`` (kind
+``"replica"``) comes first; inside it the replica's buffer mutex
+(``Replica.buf_lock``, kind ``"replica-buf"``); inside that, at most a
+global-tier stripe lock.  Never the other way round: the runtime
+sanitizer learns the kind order as it runs and reports a reverse
+acquisition.  The buffer mutex is held for one numpy call on the shared
+buffer and released before ``mark_dirty``; never across an encode, a
+wire apply or a broadcast.  Every write of the shared buffer takes it:
+a function's HOGWILD ``VectorAsync.add``/``__setitem__`` (which hold no
+replica lock), ``set_state``, and on the tier's side a full or chunk
+pull's overwrite, a frame's in-place apply, the window-miss catch-up's
+move and ``from_device``.  A quantised push takes it for its one read of
+the buffer, a push for its re-base, ``to_device`` for its copy (the
+version read first).  A push re-bases from the content it shipped: the
+one read it made or, from an f32 device replica, the content the copy
+was synced from; never a second read of the live buffer.  A push from
+the host buffer drops a stale device copy's delta base and takes back its
+error-feedback debt, so the next device push does not ship it twice.  So
+no two writes of the buffer interleave and no f32 count is lost: a push
+either shipped an add or leaves it pending in ``buffer − base``.  Not
+covered, as device-side writes by design: a device replica of another
+dtype re-bases from the live buffer, ``from_device`` overwrites the
+buffer, and ``to_device(track_delta=True)`` re-arms the device base at
+its sync; a host add racing one of them can be lost.
+
 Symmetric wire fabric (``repro_torch.state.wire``): every delta crossing the tier
 boundary is a :class:`~repro_torch.state.wire.WireFrame` encoded by a
 :class:`~repro_torch.state.wire.WireCodec` — identically in both directions.
@@ -140,6 +166,8 @@ class Replica:
     buf: np.ndarray                      # uint8, the shared region backing
     lock: RWLock = field(
         default_factory=lambda: wrap_rwlock(RWLock(), "replica"))
+    # held for one numpy write of ``buf`` (module docstring: lock order)
+    buf_lock: Any = field(default_factory=lambda: make_mutex("replica-buf"))
     present_chunks: Set[int] = field(default_factory=set)
     dirty_chunks: Set[int] = field(default_factory=set)
     full: bool = False                   # whole value present
@@ -258,16 +286,23 @@ class LocalTier:
                 r.device = d
             if not d.device_dirty and (d.value is None
                                        or d.synced_version != r.version):
-                # torch.tensor copies: on the CPU, torch.from_numpy (and a
-                # .to() of it) would alias the shared buffer, but the device
-                # replica must be a *snapshot* at this version — later host
-                # writes must not leak through
-                d.value = torch.tensor(r.buf.view(dt), device=self.device)
+                # one coherent read under the buffer mutex, the version
+                # taken before it: an add whose version bump comes after
+                # the read leaves the copy stale, so the next push reads
+                # the host buffer.  torch.tensor copies: on the CPU,
+                # torch.from_numpy (and a .to() of it) would alias the
+                # shared buffer, but the device replica must be a
+                # *snapshot* at this version
+                with r.buf_lock:
+                    ver = r.version
+                    d.value = torch.tensor(r.buf.view(dt), device=self.device)
                 if r.residual is not None and \
                         r.residual.size == d.value.numel():
-                    d.residual = torch.tensor(r.residual, device=self.device)
+                    debt = torch.tensor(r.residual, device=self.device)
+                    d.residual = debt if d.residual is None \
+                        else d.residual + debt
                     r.residual = None            # device owns the debt now
-                d.synced_version = r.version
+                d.synced_version = ver
             if track_delta and not d.device_dirty:
                 d.base = d.value.clone()
             return d.value
@@ -315,7 +350,8 @@ class LocalTier:
             # must not land between the read and the device_dirty clear
             host = d.value.detach().cpu().numpy().reshape(-1).view(np.uint8)
             n = min(host.size, r.buf.size)
-            r.buf[:n] = host[:n]
+            with r.buf_lock:
+                r.buf[:n] = host[:n]
             if d.base is not None:
                 hb = d.base.detach().cpu().numpy().reshape(-1).view(np.uint8)
                 if r.base is None or r.base.size != r.buf.size:
@@ -454,7 +490,9 @@ class LocalTier:
         fv = r.buf[:r.buf.size - r.buf.size % dt.itemsize].view(dt)
         n = min(fv.size, delta.size)
         if n:
-            fv[:n] += delta[:n].astype(dt, copy=False)
+            add = delta[:n].astype(dt, copy=False)
+            with r.buf_lock:
+                fv[:n] += add
         if r.base is not None and r.base.size >= dt.itemsize:
             bv = r.base[:r.base.size - r.base.size % dt.itemsize].view(dt)
             m = min(bv.size, delta.size)
@@ -531,9 +569,10 @@ class LocalTier:
         t0 = tel.now() if tel is not None else 0.0
         moved = 0
         if size:
-            moved, ver = self.global_tier.readinto(
-                key, 0, r.buf[:size], host=self.host_id, clamp=True,
-                return_version=True)
+            with r.buf_lock:
+                moved, ver = self.global_tier.readinto(
+                    key, 0, r.buf[:size], host=self.host_id, clamp=True,
+                    return_version=True)
         else:
             ver = self.global_tier.version(key)
         if tel is not None and moved:
@@ -595,7 +634,9 @@ class LocalTier:
         dirty, and a push that read the buffer earlier clears the dirty
         record, so the ``dirty_chunks`` guard cannot see every pending
         write.  The in-place move keeps ``buffer − base`` — every write not
-        yet pushed — whatever the dirty record says."""
+        yet pushed — whatever the dirty record says.  The move is a
+        read-modify-write of the buffer, so it holds the buffer mutex: an
+        add lands before it (and is kept) or after it."""
         tel = _TEL
         t0 = tel.now() if tel is not None else 0.0
         fresh = np.empty(size, np.uint8)
@@ -611,7 +652,9 @@ class LocalTier:
         gv = fresh[:n].view(dt)
         bv = r.base[:n].view(dt)
         fv = r.buf[:n].view(dt)
-        fv += gv - bv
+        move = gv - bv
+        with r.buf_lock:
+            fv += move
         bv[:] = gv
         r.global_version = ver
         r.pull_residual = None
@@ -629,9 +672,10 @@ class LocalTier:
             if chunk_idx not in r.present_chunks:
                 start, length = self.global_tier.chunk_bounds(key, chunk_idx)
                 if length > 0:
-                    moved = self.global_tier.readinto(
-                        key, start, r.buf[start:start + length],
-                        host=self.host_id, clamp=True)
+                    with r.buf_lock:
+                        moved = self.global_tier.readinto(
+                            key, start, r.buf[start:start + length],
+                            host=self.host_id, clamp=True)
                 r.present_chunks.add(chunk_idx)
                 if len(r.present_chunks) == self.global_tier.n_chunks(key):
                     r.full = True
@@ -762,6 +806,26 @@ class LocalTier:
         bv[:n] = pushed[:n]
 
     @staticmethod
+    def _host_push_owns(r: Replica) -> None:
+        """A push from the host buffer while a stale device copy is bound
+        (replica write lock held).  The device's error-feedback debt comes
+        back to the host, which pays it in this push, and the device's delta
+        base is dropped: it is behind the content this push ships, so the
+        next push from the device diffs against the host base instead of
+        shipping this push's delta a second time.  Pending device-side
+        writes keep both: they are not in a host push."""
+        d = r.device
+        if d is None or d.device_dirty:
+            return
+        if d.residual is not None:
+            debt = np.array(host_f32(d.residual), dtype=np.float32)
+            if r.residual is not None and r.residual.size == debt.size:
+                debt += r.residual
+            r.residual = debt
+            d.residual = None
+        d.base = None
+
+    @staticmethod
     def _base_f32(r: Replica, dt: np.dtype, n: int) -> np.ndarray:
         """The delta base as f32 of exactly ``n`` elements (replica lock
         held).  A base snapshotted before the buffer grew is zero-extended —
@@ -886,10 +950,17 @@ class LocalTier:
         t0 = tel.now() if tel is not None else 0.0
         r.lock.acquire_write()
         try:
+            self._host_push_owns(r)
             local = r.buf.view(dt)
             base = (r.base.view(dt)[:local.size]
                     if r.base is not None else None)
             rebased = base is not None and base.size == local.size
+            if not rebased:
+                # first tracked push: one read both pushes and becomes the
+                # base, so an add after it stays pending
+                with r.buf_lock:
+                    # faasmlint: disable=tier-copy -- replica-internal base snapshot
+                    local = local.copy()
             lock = gt.lock(key)
             lock.acquire_write()
             try:
@@ -907,9 +978,10 @@ class LocalTier:
                 return 0
             moved, prev, new = res
             if not rebased:
-                # first tracked push (no base yet): snapshot one.  Later
-                # pushes rebase inside add_inplace from the read itself.
-                self._refresh_base(r)
+                # first tracked push (no base yet): the base is the content
+                # it read.  Later pushes rebase inside add_inplace from the
+                # read itself.
+                r.base = local.view(np.uint8)
             r.dirty_chunks.clear()
             # the pusher's buffer is the post-push content: keep its base
             # version current (same rule as _after_push) so its own warm
@@ -966,7 +1038,9 @@ class LocalTier:
                                         device=self.device)
                 d.base = d.value.clone()     # device snapshot
                 host_synced = not d.device_dirty
+                snap = local                 # the content it was synced from
             else:
+                self._host_push_owns(r)
                 local = r.buf.view(np.float32)
                 base = self._base_f32(r, np.dtype(np.float32), local.size)
                 eff = local
@@ -984,10 +1058,8 @@ class LocalTier:
                     snap -= flushed
                 host_synced = True
             if host_synced:
-                if snap is not None:
+                with r.buf_lock:
                     self._rebase_pushed(r, snap)
-                else:
-                    self._refresh_base(r)
                 r.dirty_chunks.clear()
         finally:
             r.lock.release_write()
@@ -1089,12 +1161,18 @@ class LocalTier:
                 # pending device writes the host chunks stay dirty: their
                 # content was NOT in this push.
                 host_synced = not d.device_dirty
+                if host_synced and dt == np.float32:
+                    # the host base follows the content the device copy was
+                    # synced from, never a second read of the live buffer
+                    snap = host_f32(local)
             else:
+                self._host_push_owns(r)
                 local = r.buf.view(dt)
                 base = self._base_f32(r, dt, local.size)
                 if r.residual is None or r.residual.size != local.size:
                     r.residual = np.zeros(local.size, np.float32)
-                snap = local.astype(np.float32)  # one coherent buffer read
+                with r.buf_lock:
+                    snap = local.astype(np.float32)  # one coherent read
                 eff = snap + r.residual
                 try:
                     frame, residual = codec.encode(eff, base, backend=backend,
@@ -1109,10 +1187,11 @@ class LocalTier:
                 host_synced = True
             frame.dtype = dt
             if host_synced:
-                if snap is not None and dt == np.float32:
-                    self._rebase_pushed(r, snap)
-                else:
-                    self._refresh_base(r)
+                with r.buf_lock:
+                    if snap is not None and dt == np.float32:
+                        self._rebase_pushed(r, snap)
+                    else:
+                        self._refresh_base(r)
                 r.dirty_chunks.clear()
         finally:
             r.lock.release_write()

@@ -21,8 +21,11 @@ join the attention cases, and their smoke models run kernel path against
 plain path and graphed loop against eager loop.  The twins of the paper's
 experiments: Fig. 6 with one
 worker trains the same weights on the card as on the CPU bitwise, on both
-wires, and the Fig. 9 twin's rows hold and count their launches.  This
-file imports no JAX: the
+wires, and the Fig. 9 twin's rows hold and count their launches.  The
+chaos suite's storm with the tiers on the card, on the int8 wire: K1
+once per int8 encode, K2 once per frame a device replica pulls;
+zamba2-1.2b's smoke model in the fan-out's compiled forward, replay
+against eager.  This file imports no JAX: the
 machine with the card has none.  Run it there with
 ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``.
 """
@@ -1483,3 +1486,55 @@ def test_fig9_twin_rows_hold_and_count_their_launches(card):
     kernels = [r for r in m.rows if "kernel_us" in r]
     assert len(kernels) == 7 and set(got) == {r["counter"] for r in kernels}
     assert all(r["kernel_us"] > 0 and r["plain_us"] > 0 for r in kernels)
+
+
+# -- the chaos suite's storm and the hybrid's fan-out forward on the card -----
+
+
+@pytest.mark.cuda
+def test_device_tier_int8_storm_launches_k1_once_per_encode(card):
+    """``tests/test_chaos.py``'s storm (two pushers, a subscriber and a
+    polling puller under ``FaultPlan.random(0)``) with the tiers on the
+    card, on the int8 wire at a 4,096-float key, through
+    ``chip_smoke.chaos_storm``, which raises unless the global value and
+    every replica (the puller's device replica too) land within the int8
+    bound of the fault-free sum after a repair pull.  K1 launches exactly
+    once per int8 encode the wire spans record, K2 once per int8 frame
+    the puller's device replica took, and an injected codec error
+    launches none."""
+    smoke = _paper_twin("chip_smoke")
+    r = smoke.chaos_storm(0, 4096, "int8", device="cuda")
+    assert r["launches"]["state_push.quantize_delta"] == \
+        r["pushes"] + r["pulls"] > 0
+    assert r["launches"]["state_push.apply_delta"] == r["applied"]
+    assert r["fallbacks"] == r["fired"].get("codec-error", 0)
+
+
+@pytest.mark.cuda
+def test_hybrid_graphed_call_equals_the_eager_call_bitwise(card):
+    """zamba2-1.2b's smoke model in the fan-out's compiled forward at 2
+    slots: every replay gives the eager call's token and last-position
+    logits bitwise, at a second length too, and one forward launches K8 once per Mamba layer and
+    K5 once per application of the shared block, and no K6."""
+    from repro_torch.launch.call_graphs import CallGraphs
+    from repro_torch.models.ssm_stack import n_attn_apps
+    model, leaves, prompts = _call_served(card, "zamba2-1.2b")
+    counters = _kernel_counters()
+    graphs = CallGraphs(model, 2, card)
+    for prompt in prompts[:4] + [prompts[4][:, :9]]:
+        want_tok, want = _eager_call(model, leaves, prompt, card)
+        for c in counters.values():
+            c.reset()
+        got = graphs(leaves, prompt, keep_logits=True)
+        assert got.token == want_tok
+        assert torch.equal(got.logits, want)
+    for c in counters.values():
+        c.reset()
+    graphs(leaves, prompts[0])                # a replay alone
+    per_forward = {k: c.value for k, c in counters.items()}
+    cfg = model.cfg
+    assert per_forward == {"flash_attention": n_attn_apps(cfg),
+                           "decode_attention": 0, "moe_gmm": 0,
+                           "ssd_scan": cfg.n_layers}
+    assert graphs.captures == 2 and graphs.replays == 6
+    graphs.close()
