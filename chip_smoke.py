@@ -217,7 +217,20 @@ Phases, each fatal on failure:
    GQA decoders'; the argmax held for both); every K5 and K6 sublayer call
    repeated on the plain path (3e-2); K5 and K6 timed at every one of
    these shapes beside SDPA; the warm decode loop; the weights widened to
-   f32, as phase 14.
+   f32, as phase 14;
+18. training, the other families: whisper-tiny, internvl2-2b and
+   qwen3-4b at full width, as phase 15, one model on the card at a time:
+   K5's statistics and ``FlashAttentionFn``'s gradients at every
+   attention shape the model trains (whisper: the encoder's 1,500 x
+   1,500 without a mask, the decoder's causal 4,096 and the
+   cross-attention of 4,096 queries over 1,500 frames; internvl2-2b's
+   4,096 positions at H 16 over K 8, D 128; qwen3-4b at H 32 over K 8),
+   and one layer's at starcoder2-7b's H 36 over K 4; the kernel-path
+   holds with the frames or patch embeddings in the batch (qwen3-4b in
+   four microbatches of one row on both paths); the main path, 8 steps
+   (qwen3-4b 4), K5 exactly 24, 48 and 72 times a step, by shape too
+   (whisper 8 at each of its three); the same reports, with K5 and the
+   plain flash backward timed at every one of these shapes beside SDPA.
 
 Phase 2 also holds K8 against its plain version (and the sequential
 oracle) at both models' prefill shapes, in f32 at the reference's 1e-4
@@ -254,7 +267,8 @@ K6 at the five served decode shapes beside SDPA (on one cache, and over
 call launches, and stops; ``python3 chip_smoke.py ssd`` holds K8 at every
 phase-2 case, times it at both SSM prefill shapes with the time of each of
 its kernels, and stops.  ``python3 chip_smoke.py train`` builds, holds the attention kernels,
-runs phases 15 and 16 and stops.  ``python3 chip_smoke.py gqa``
+runs phases 15 and 16 and stops; ``python3 chip_smoke.py trainfam``
+the same for phase 18, printing its kernels line.  ``python3 chip_smoke.py gqa``
 builds, holds the attention kernels and runs phase 14 alone;
 ``python3 chip_smoke.py families`` the same for phase 17.  ``python3
 chip_smoke.py paper`` builds, holds K1-K4 and runs the paper phase
@@ -288,6 +302,7 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 ARCH, BATCH, PROMPT, NEW_TOKENS, SEED = "qwen1.5-0.5b", 4, 512, 32, 0
+PROFILE_STEPS = 8          # decode steps a decode-only warm profile covers
 MOE_ARCH = "deepseek-moe-16b"
 SSM_ARCHS = ("mamba2-130m", "zamba2-1.2b")
 # the grouped-query decoders (qwen3-4b and granite-3-8b share H 32 over K 8)
@@ -409,8 +424,13 @@ DECODE_ROWS = {
 }
 
 
+_T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """One line of the run's log, after the seconds since the script
+    started: where the 1,200 s a run may take go."""
+    print(f"[{time.perf_counter() - _T0:7.1f}s] {msg}", flush=True)
 
 
 def nvidia_smi() -> str:
@@ -604,9 +624,13 @@ def queued_ms(fn, iters: int = 20, attempts: int = 3) -> tuple:
     return ms, f"{iters} calls back to back (the host waited for the card)"
 
 
-def check_close(name: str, got, want, tol: float) -> float:
+def check_close(name: str, got, want, tol: float,
+                rl2: float | None = None) -> float:
     """Max |got - want|; raises unless |got - want| <= tol + tol * |want|
-    everywhere (the test suite's assert_allclose rule)."""
+    everywhere (the test suite's assert_allclose rule), and with ``rl2``
+    unless ||got - want|| <= rl2 ||want|| too (logged beside the
+    reference's RMS): where a typical |want| is near ``tol``, the first
+    rule alone cannot see a wrong sum."""
     import torch
     if got.shape != want.shape or got.dtype != want.dtype:
         raise AssertionError(f"{name}: got {tuple(got.shape)} {got.dtype}, "
@@ -617,8 +641,15 @@ def check_close(name: str, got, want, tol: float) -> float:
     d = (got.float() - want.float()).abs()
     err = float(d.max())
     excess = float((d - (tol + tol * want.float().abs())).max())
-    log(f"  {name}: max_abs_err {err:.3e} (tol {tol:g} abs + {tol:g} rel) "
-        f"{'ok' if excess <= 0 else 'FAIL'}")
+    rel = ""
+    if rl2 is not None:
+        norm = float(want.float().norm())
+        r = float(d.norm()) / max(norm, 1e-30)
+        rel = (f", relative L2 {r:.3e} (held to {rl2:g}; the reference's "
+               f"RMS {norm / want.numel() ** 0.5:.3e})")
+        excess = max(excess, r - rl2)
+    log(f"  {name}: max_abs_err {err:.3e} (tol {tol:g} abs + {tol:g} rel)"
+        f"{rel} {'ok' if excess <= 0 else 'FAIL'}")
     if excess > 0:
         raise AssertionError(f"{name}: outside tolerance by {excess:.3e}")
     return err
@@ -2739,12 +2770,12 @@ def phase_gmm_ab(errs) -> None:
 
 def _serve_once(model, params, tokens, decode_ctx=contextlib.nullcontext,
                 prefill_ctx=contextlib.nullcontext, kept=None,
-                extra=None) -> tuple:
+                extra=None, ctx_steps: int = NEW_TOKENS - 1) -> tuple:
     """Prefill + greedy decode of the kernel path, op by op from Python
-    (the eager loop): (prefill s, decode s); ``prefill_ctx`` wraps the
-    prefill and ``decode_ctx`` the decode loop (a profiler); a list
-    ``kept`` receives every step's logits; ``extra`` is the family's
-    extra input."""
+    (the eager loop): (prefill s, s of the last ``ctx_steps`` decode
+    steps, s of all decode steps); ``prefill_ctx`` wraps the prefill and ``decode_ctx`` those
+    decode steps (a profiler); a list ``kept`` receives every step's
+    logits; ``extra`` is the family's extra input."""
     import torch
     with torch.no_grad(), contextlib.ExitStack() as stack:
         cache = model.init_cache(BATCH, cache_len(model.cfg), "cuda")
@@ -2754,25 +2785,31 @@ def _serve_once(model, params, tokens, decode_ctx=contextlib.nullcontext,
             lg, cache, n = model.prefill(params, tokens, cache, extra)
             tok = lg.argmax(-1).to(torch.int32)
             torch.cuda.synchronize()
-        stack.enter_context(decode_ctx())
         t1 = time.perf_counter()
         for i in range(NEW_TOKENS - 1):
+            if i == NEW_TOKENS - 1 - ctx_steps:
+                torch.cuda.synchronize()
+                stack.enter_context(decode_ctx())
+                t2 = time.perf_counter()
             if kept is not None:
                 kept.append(lg)
             idx = torch.full((BATCH,), n + i, dtype=torch.int32, device="cuda")
             lg, cache = model.decode_step(params, tok, cache, idx)
             tok = lg.argmax(-1).to(torch.int32)
         torch.cuda.synchronize()
+        t3 = time.perf_counter()
         if kept is not None:
             kept.append(lg)
-        return t1 - t0, time.perf_counter() - t1
+        return t1 - t0, t3 - t2, t3 - t1
 
 
 def _serve_graphed(graphs, tokens, decode_ctx=contextlib.nullcontext,
-                   prefill_ctx=contextlib.nullcontext) -> tuple:
+                   prefill_ctx=contextlib.nullcontext,
+                   ctx_steps: int = NEW_TOKENS - 1) -> tuple:
     """The launcher's graphs replayed as ``_serve_once`` runs the eager
-    loop (the same contexts, no copy of a step's token): (prefill s,
-    decode s)."""
+    loop (the same contexts and steps, no copy of a step's token):
+    (prefill s, s of the last ``ctx_steps`` decode steps, s of all decode
+    steps)."""
     import torch
     with torch.no_grad(), contextlib.ExitStack() as stack:
         torch.cuda.synchronize()
@@ -2780,12 +2817,16 @@ def _serve_graphed(graphs, tokens, decode_ctx=contextlib.nullcontext,
         with prefill_ctx():
             graphs.prefill(tokens)
             torch.cuda.synchronize()
-        stack.enter_context(decode_ctx())
         t1 = time.perf_counter()
-        for _ in range(NEW_TOKENS - 1):
+        for i in range(NEW_TOKENS - 1):
+            if i == NEW_TOKENS - 1 - ctx_steps:
+                torch.cuda.synchronize()
+                stack.enter_context(decode_ctx())
+                t2 = time.perf_counter()
             graphs.step()
         torch.cuda.synchronize()
-        return t1 - t0, time.perf_counter() - t1
+        t3 = time.perf_counter()
+        return t1 - t0, t3 - t2, t3 - t1
 
 
 def replay_host_ms(graphs, tokens) -> tuple:
@@ -2849,7 +2890,9 @@ def phase_warm_serve(res, decode_only: bool = False) -> None:
     launcher's graphed loop (``ServeGraphs.generate``), three runs each,
     then one run of each under torch.profiler for the device's busy
     share and the ops that hold it (with ``decode_only``, the profiler
-    covers the decode loop alone).  The graphed profile replays the
+    covers the loop's last ``PROFILE_STEPS`` decode steps alone, beside
+    the unprofiled runs' wall of the same steps, three more for the
+    graphed loop: reading a trace of all 31 steps took 10-20 s a model).  The graphed profile replays the
     graphs as ``_serve_once`` runs the eager loop; it must hold one record
     for each node of the graphs it replays (counted by libcuda's
     ``cuGraphGetNodes`` on graphs of the same steps), or its trace is not
@@ -2859,10 +2902,13 @@ def phase_warm_serve(res, decode_only: bool = False) -> None:
     from torch.profiler import ProfilerActivity, profile
     model, params, tokens = res["model"], res["params"], res["tokens"]
     graphs, name, extra = res["graphs"], res["cfg"].name, res.get("extra")
-    runs = [_serve_once(model, params, tokens, extra=extra) for _ in range(3)]
+    steps = NEW_TOKENS - 1
+    k = PROFILE_STEPS if decode_only else steps   # decode steps profiled
+    runs = [_serve_once(model, params, tokens, extra=extra, ctx_steps=k)
+            for _ in range(3)]
     g_runs = [graphs.generate(tokens, NEW_TOKENS) for _ in range(3)]
     g_runs = [(g.prefill_s, g.decode_s) for g in g_runs]
-    rate = lambda r: BATCH * (NEW_TOKENS - 1) / r[1]
+    rate = lambda r: BATCH * steps / r[-1]        # the whole decode loop
     host = [replay_host_ms(graphs, tokens) for _ in range(2)]
     log(f"warm serve {name} (3 runs each), eager | graphed: prefill ms "
         f"{[r[0] * 1e3 for r in runs]} | {[r[0] * 1e3 for r in g_runs]}, "
@@ -2870,30 +2916,33 @@ def phase_warm_serve(res, decode_only: bool = False) -> None:
         f"{[rate(r) for r in g_runs]}; capture {res['capture_s'] * 1e3:.1f}ms"
         f"; host ms to queue a decode replay {[round(h[0], 4) for h in host]}"
         f" of {[round(h[1], 4) for h in host]} ms per step")
-    pick = (lambda r: r[1]) if decode_only else sum
-    what = (f"{NEW_TOKENS - 1} decode steps" if decode_only
-            else f"one prefill + {NEW_TOKENS - 1} decode steps")
+    pick = (lambda r: r[1]) if decode_only else (lambda r: r[0] + r[1])
+    what = (f"the last {k} of {steps} decode steps" if decode_only
+            else f"one prefill + {steps} decode steps")
     out = {}
     for loop, serve_fn, warm_runs in (
             ("eager", lambda **kw: _serve_once(model, params, tokens,
                                                extra=extra, **kw), runs),
             ("graphed", lambda **kw: _serve_graphed(graphs, tokens, **kw),
              g_runs)):
+        if decode_only and loop == "graphed":   # the wall of the same k
+            warm_runs = [serve_fn(ctx_steps=k) for _ in range(3)]
         prof = profile(activities=[ProfilerActivity.CUDA])
         if decode_only:
-            wall = serve_fn(decode_ctx=lambda: prof)[1]
+            wall = pick(serve_fn(decode_ctx=lambda: prof, ctx_steps=k))
         else:
             with prof:
-                wall = sum(serve_fn())
+                wall = pick(serve_fn())
         busy_ms, n_kernels, events = _busy(prof)
         warm_wall = min(pick(r) for r in warm_runs)
         out[loop] = (busy_ms, n_kernels, warm_wall, events)
-        per_step = (f" ({n_kernels / (NEW_TOKENS - 1):.0f} per decode step)"
+        per_step = (f" ({n_kernels / k:.0f} per decode step)"
                     if decode_only else "")
         log(f"profile {name} {loop} ({what}): device busy {busy_ms:.1f}ms "
             f"in {n_kernels} kernels{per_step}; "
             f"{100 * busy_ms / 1e3 / warm_wall:.1f}% of the fastest "
             f"unprofiled run's {warm_wall * 1e3:.1f}ms wall "
+            f"{'(the same steps) ' if decode_only else ''}"
             f"({wall * 1e3:.1f}ms under the profiler)")
         for e in sorted(events, key=lambda e: e.self_device_time_total,
                         reverse=True)[:8]:
@@ -2901,16 +2950,15 @@ def phase_warm_serve(res, decode_only: bool = False) -> None:
                 f"{e.key[:90]}")
     # what the replays queued, read off graphs of the same steps through
     # libcuda: a whole trace holds one record for each of their nodes
-    steps = NEW_TOKENS - 1
     with torch.no_grad():
         graphs.prefill(tokens)        # a position the decode step may write
-        nodes = steps * len(graph_node_types(graphs._decode_body))
+        nodes = k * len(graph_node_types(graphs._decode_body))
         if not decode_only:
             nodes += len(graph_node_types(graphs._prefill_body))
     whole = out["graphed"][1] == nodes
     busy = out["graphed"][0] if whole else out["eager"][0]
     odd = {e.key[:50]: e.count for e in out["graphed"][3]
-           if decode_only and e.count % steps}
+           if decode_only and e.count % k}
     log(f"busy share {name}: eager "
         f"{100 * out['eager'][0] / 1e3 / out['eager'][2]:.1f}%, graphed "
         f"{100 * busy / 1e3 / out['graphed'][2]:.1f}% ("
@@ -2919,7 +2967,7 @@ def phase_warm_serve(res, decode_only: bool = False) -> None:
            "ms over the graphed wall; the graphed trace's own: "
            f"{100 * out['graphed'][0] / 1e3 / out['graphed'][2]:.1f}%")
         + f"): {out['graphed'][1]} records against the graphs' {nodes} "
-        f"nodes ({nodes / steps if decode_only else nodes}"
+        f"nodes ({nodes / k if decode_only else nodes}"
         f"{' per step' if decode_only else ''}), the eager loop's "
         f"{out['eager'][1]}; records not a multiple of the steps: {odd}")
 
@@ -3262,66 +3310,109 @@ def phase_ssd_ab() -> None:
 # ---------------------------------------------------------------------------
 
 TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS, TRAIN_WARM = 4096, 4, 8, 2
-TRAIN_ARCHS = (ARCH,) + SSM_ARCHS
+# each training architecture: (arch, the main path's steps, architectures
+# whose K5 training parity runs beside its own and which train no further)
+TRAIN_ARCHS = tuple((a, TRAIN_STEPS, ()) for a in (ARCH,) + SSM_ARCHS)
+# phase 18: the other families at full width, and the largest GQA decoder
+# in 4 steps (inside the run's time budget), with one layer's parity at
+# starcoder2-7b's grouping (H 36 over K 4, D 128): granite-3-8b's G 4 is
+# qwen3-4b's
+FAMILY_TRAIN_ARCHS = (("whisper-tiny", TRAIN_STEPS, ()),
+                      ("internvl2-2b", TRAIN_STEPS, ()),
+                      ("qwen3-4b", 4, ("starcoder2-7b",)))
 TRAIN_LOSS_TOL = {"float32": 1e-4, "bfloat16": 3e-2}   # abs + rel
 TRAIN_GRAD_RL2 = 1e-3        # each f32 gradient leaf, relative L2
+# K5's output and FlashAttentionFn's gradients at a training shape (bf16),
+# relative L2 beside TOL: over ~1,500 keys a typical |value| is ~3e-2
+TRAIN_ATTN_RL2 = 1e-2
 
 
-def _train_row(kernel: str, cfg) -> str:
+def train_shapes(cfg) -> dict:
+    """K5's calls in one training forward of ``cfg`` at (B 4, S 4096), by
+    the wrapper's launch key (Sq, Sk, H, K, D, causal), with their counts.
+    Dense and VLM: one causal self-attention per layer (the VLM's 256
+    patches and 3,840 text tokens make its 4,096 positions); the hybrid:
+    one per shared-block application; whisper-tiny: the encoder's
+    self-attention without a mask over the frames, then in each decoder
+    layer the causal self-attention and the cross-attention over the
+    frames; pure SSM: none."""
+    from repro_torch.models.ssm_stack import n_attn_apps
+    H, K, D, L, S = (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.n_layers,
+                     TRAIN_SEQ)
+    if cfg.family == "encdec":
+        F = cfg.n_frames
+        return {(F, F, H, K, D, False): cfg.n_enc_layers,
+                (S, S, H, K, D, True): L, (S, F, H, K, D, False): L}
+    if cfg.family == "hybrid":
+        return {(S, S, H, K, D, True): n_attn_apps(cfg)}
+    return {} if cfg.ssm_state else {(S, S, H, K, D, True): L}
+
+
+def _part(shape) -> str:
+    """`` encoder`` or `` cross`` for whisper-tiny's unmasked shapes."""
+    Sq, Sk, causal = shape[0], shape[1], shape[5]
+    return "" if causal else " encoder" if Sq == Sk else " cross"
+
+
+def _train_row(kernel: str, cfg, part: str = "") -> str:
     """A training row's name: ``flash_attention[train]`` for qwen1.5-0.5b
-    (the first training row), else ``<kernel>[train <arch>]``."""
+    (the first training row), else ``<kernel>[train <arch><part>]``."""
     return f"{kernel}[train]" if cfg.name == ARCH else \
-        f"{kernel}[train {cfg.name}]"
+        f"{kernel}[train {cfg.name}{part}]"
 
 
-def _train_qkv(g, cfg):
-    """One attention layer's operands of ``cfg`` at the training shape
-    (bf16), and an upstream gradient."""
+def _train_qkv(g, shape):
+    """One attention call's operands at a training shape (Sq, Sk, H, K, D,
+    causal) at batch 4 (bf16), and an upstream gradient."""
     import torch
-    H, K, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    shapes = [(TRAIN_BATCH, TRAIN_SEQ, H, D), (TRAIN_BATCH, TRAIN_SEQ, K, D),
-              (TRAIN_BATCH, TRAIN_SEQ, K, D), (TRAIN_BATCH, TRAIN_SEQ, H, D)]
+    Sq, Sk, H, K, D, _ = shape
+    shapes = [(TRAIN_BATCH, Sq, H, D), (TRAIN_BATCH, Sk, K, D),
+              (TRAIN_BATCH, Sk, K, D), (TRAIN_BATCH, Sq, H, D)]
     return [torch.randn(s, generator=g, device="cuda").to(torch.bfloat16)
             for s in shapes]
 
 
-def phase_train_parity(cfg) -> dict:
+def phase_train_parity(cfg, shape, name: str) -> dict:
     """K5's softmax statistics and ``FlashAttentionFn``'s gradients at one
-    attention layer's training shape of ``cfg`` (B 4, S 4096, bf16,
-    causal) against the plain version's (``attention_ref`` with its
-    statistics, and autograd through it): the output and gradients at the
-    bf16 kernel tolerance, the statistics (f32 sums of f32 products of the
-    same bf16 operands) at the f32 one."""
+    attention call's training shape of ``cfg`` (B 4, bf16; causal, or
+    without a mask) against the plain version's (``attention_ref`` with
+    its statistics, and autograd through it): the output and gradients at
+    the bf16 kernel tolerance and within ``TRAIN_ATTN_RL2`` relative L2,
+    the statistics (f32 sums of f32 products of the same bf16 operands) at
+    the f32 one."""
     import torch
     from repro_torch.kernels.flash_attention import (attention_ref,
                                                      flash_attention)
     from repro_torch.kernels.flash_attention import ops as flash_ops
     g = torch.Generator(device="cuda").manual_seed(SEED + 20)
-    q, k, v, do = _train_qkv(g, cfg)
-    D = q.shape[-1]
+    q, k, v, do = _train_qkv(g, shape)
+    Sq, Sk, H, K, D, causal = shape
+    what = f"{cfg.name}{_part(shape)} train shape"
     log(f"train parity: K5 with statistics and FlashAttentionFn at "
-        f"{cfg.name}'s B {TRAIN_BATCH} S {TRAIN_SEQ} H {q.shape[2]} D {D}, "
-        f"bf16, causal")
-    out, lse = flash_ops._flash_cuda(q, k, v, True, D ** -0.5, 0, stats=True)
+        f"{cfg.name}'s{_part(shape)} B {TRAIN_BATCH} Sq {Sq} Sk {Sk} H {H} "
+        f"K {K} D {D}, bf16, {'causal' if causal else 'no mask'}")
+    out, lse = flash_ops._flash_cuda(q, k, v, causal, D ** -0.5, 0,
+                                     stats=True)
     torch.cuda.synchronize()
-    want, want_lse = attention_ref(q, k, v, causal=True, return_stats=True)
-    err = check_close("K5 output (train shape)", out, want, TOL["bfloat16"])
-    check_close("K5 statistics (train shape)", lse, want_lse, TOL["float32"])
+    want, want_lse = attention_ref(q, k, v, causal=causal, return_stats=True)
+    err = check_close(f"K5 output ({what})", out, want, TOL["bfloat16"],
+                      TRAIN_ATTN_RL2)
+    check_close(f"K5 statistics ({what})", lse, want_lse, TOL["float32"])
     del want, want_lse
     xs = [t.clone().requires_grad_() for t in (q, k, v)]
     n0 = flash_ops.LAUNCHES.value
-    flash_attention(*xs, causal=True).backward(do)
+    flash_attention(*xs, causal=causal).backward(do)
     torch.cuda.synchronize()
     if flash_ops.LAUNCHES.value != n0 + 1:
         raise AssertionError("FlashAttentionFn did not launch K5 once")
     ys = [t.clone().requires_grad_() for t in (q, k, v)]
-    attention_ref(*ys, causal=True).backward(do)
-    for name, a, b in zip(("dq", "dk", "dv"), xs, ys):
-        check_close(f"FlashAttentionFn {name} (train shape)", a.grad, b.grad,
-                    TOL["bfloat16"])
+    attention_ref(*ys, causal=causal).backward(do)
+    for gname, a, b in zip(("dq", "dk", "dv"), xs, ys):
+        check_close(f"FlashAttentionFn {gname} ({what})", a.grad, b.grad,
+                    TOL["bfloat16"], TRAIN_ATTN_RL2)
     del xs, ys
     torch.cuda.empty_cache()
-    return {_train_row("flash_attention", cfg): err}
+    return {name: err}
 
 
 def _ssd_train_operands(g, cfg):
@@ -3404,8 +3495,22 @@ def _hold_microbatches(cfg) -> int:
     attention makes (B, H, S, S) f32 scores and keeps three of them for
     its backward, 4.3 GB each at qwen1.5-0.5b's 16 heads and 4 rows;
     zamba2-1.2b's 32 heads take two microbatches of 2 rows on both paths
-    (at 4 rows the plain path wants more than the card's 80 GB)."""
-    return max(1, cfg.n_heads * TRAIN_BATCH // 64)
+    (at 4 rows the plain path wants more than the card's 80 GB).  Past
+    3 B parameters the f32 weights and two sets of gradient leaves take
+    ~12 bytes a parameter, 48 GB at qwen3-4b's 4.0 B, so the scores get
+    one row at a time."""
+    n = max(1, cfg.n_heads * TRAIN_BATCH // 64)
+    return TRAIN_BATCH if cfg.param_count() > 3e9 else n
+
+
+def _zero_grad_leaves(cfg, names) -> dict:
+    """The leaves whose gradient is zero in exact arithmetic, each with the
+    leaf that scales it: without rotary positions a key bias adds q·bk to
+    every score of a row alike, which the softmax ignores (the CPU tests
+    hold the same leaves apart).  Maps each ``*.bk`` to its ``*.bq``."""
+    if cfg.use_rope or not cfg.qkv_bias:
+        return {}
+    return {n: n[:-2] + "bq" for n in names if n.endswith(".bk")}
 
 
 def phase_train_holds(cfg) -> None:
@@ -3414,8 +3519,13 @@ def phase_train_holds(cfg) -> None:
     ``_hold_microbatches``) on the kernel path and on the plain path
     (``backend="torch"``), on the same weights and batch: with the
     weights widened to f32 the losses within 1e-4 and
-    every gradient leaf within 1e-3 relative L2; in bf16 the losses within
-    3e-2 and each leaf's relative L2 reported."""
+    every gradient leaf within 1e-3 relative L2 (a leaf whose gradient is
+    zero, ``_zero_grad_leaves``, within 1e-3 of its sibling's norm on both
+    paths); in bf16 the losses within 3e-2 and each leaf's relative L2
+    reported.  The batch carries the
+    frames or patch embeddings ``make_batch`` draws for the family.  The
+    kernel path's leaves wait in host memory while the plain path runs,
+    and come back one at a time for the comparison."""
     import torch
     from repro_torch.models import ExecConfig, build_model
     from repro_torch.models.weights import trainable
@@ -3432,7 +3542,12 @@ def phase_train_holds(cfg) -> None:
             model = build_model(dcfg, ExecConfig(
                 backend=backend, loss_chunk=min(TRAIN_SEQ, 128)))
             t0 = time.perf_counter()
-            out[backend] = _loss_and_grads(model, params, batch, n_micro)
+            loss, grads = _loss_and_grads(model, params, batch, n_micro)
+            if backend == "auto":
+                finite = all(bool(torch.isfinite(g).all()) for g in grads)
+                grads = [g.cpu() for g in grads]
+            out[backend] = loss, grads
+            del grads
             torch.cuda.synchronize()
             log(f"  train step {cfg.name} {dtype} {backend}: loss "
                 f"{float(out[backend][0]):.6f} in "
@@ -3444,25 +3559,36 @@ def phase_train_holds(cfg) -> None:
         (lk, gk), (lp, gp) = out["auto"], out["torch"]
         tol = TRAIN_LOSS_TOL[dtype]
         names = [n for n, _ in params.named_parameters()]
-        rl2 = {n: float((a.float() - b.float()).norm() /
-                        b.float().norm().clamp_min(1e-30))
-               for n, a, b in zip(names, gk, gp)}
+        gk, gp = dict(zip(names, gk)), dict(zip(names, gp))
+        zero = _zero_grad_leaves(cfg, names)
+        rl2 = {n: float((gk[n].to(gp[n].device).float() - gp[n].float())
+                        .norm() / gp[n].float().norm().clamp_min(1e-30))
+               for n in names if n not in zero}
+        # a zero leaf's gradient on either path, over its query-bias
+        # sibling's on the plain path: round-off, held to the same 1e-3
+        zr = {n: max(float(gk[n].float().norm()), float(gp[n].float().norm()))
+              / float(gp[zero[n]].float().norm().clamp_min(1e-30))
+              for n in zero}
         worst = max(rl2, key=rl2.get)
-        finite = all(bool(torch.isfinite(a).all()) for a in gk)
         log(f"train hold {cfg.name} {dtype}: kernel path vs plain path, loss "
             f"{float(lk):.6f} vs {float(lp):.6f} (|d| "
             f"{abs(float(lk) - float(lp)):.3e}, tol {tol:g} abs + rel); "
             f"gradient leaves' relative L2: max {rl2[worst]:.3e} ({worst}), "
             f"median {sorted(rl2.values())[len(rl2) // 2]:.3e}"
+            + (f"; the {len(zr)} key biases' (zero: no rotary positions) "
+               f"norm over their query bias's: max {max(zr.values()):.3e}"
+               if zr else "")
             + (f" (held to {TRAIN_GRAD_RL2:g})" if dtype == "float32"
                else " (reported)"))
         if not finite or abs(float(lk) - float(lp)) > tol + tol * abs(float(lp)):
             raise AssertionError(f"train step {cfg.name} {dtype}: losses "
                                  f"{float(lk)} and {float(lp)}, or a "
                                  f"non-finite gradient")
-        if dtype == "float32" and rl2[worst] > TRAIN_GRAD_RL2:
-            raise AssertionError(f"{cfg.name} gradient {worst}: relative L2 "
-                                 f"{rl2[worst]:.3e}")
+        bad = [n for n, r in list(rl2.items()) + list(zr.items())
+               if r > TRAIN_GRAD_RL2]
+        if dtype == "float32" and bad:
+            raise AssertionError(f"{cfg.name} gradients {bad[:4]}: relative "
+                                 f"L2 {[rl2.get(n, zr.get(n)) for n in bad[:4]]}")
         del out, gk, gp
         if dtype == "float32":
             del params
@@ -3487,53 +3613,71 @@ def _ssd_flops(Bt: int, S: int, H: int, P: int, G: int, N: int,
             Bt * H * nc * 4 * Q * N * P)
 
 
+def _attn_pairs(shape) -> int:
+    """Query-key pairs of one row and head at a K5 launch key: the causal
+    half S (S + 1) / 2, or Sq Sk without a mask."""
+    Sq, Sk, causal = shape[0], shape[1], shape[5]
+    return Sq * (Sq + 1) // 2 if causal else Sq * Sk
+
+
 def _train_flops(cfg, params) -> float:
-    """Model FLOP of one step: 6 N T for the weights (the tied embedding
-    counted once, as the unembedding; the hybrid's shared block once per
-    application), plus 3 times the forward of causal attention (QK^T and
-    PV over S (S + 1) / 2 pairs) in each attention layer or shared-block
-    application and of the SSD scan's products (``_ssd_flops``) in each
-    Mamba layer: the backward twice the forward; no remat recompute."""
-    from repro_torch.models.ssm_stack import n_attn_apps
+    """Model FLOP of one step: 6 N T for the weights, each weight counted
+    over the tokens that pass it (the tied embedding once, as the
+    unembedding; the hybrid's shared block once per application;
+    whisper-tiny's encoder over the frames and its decoder and
+    unembedding over the tokens; the VLM's layers over its 4,096
+    positions and its unembedding over the 3,840 text tokens), plus 3
+    times the forward of attention (QK^T and PV over the pairs of
+    ``_attn_pairs``) at every shape of ``train_shapes`` and of the SSD
+    scan's products (``_ssd_flops``) in each Mamba layer: the backward
+    twice the forward; no remat recompute."""
     T = TRAIN_BATCH * TRAIN_SEQ
     n = sum(p.numel() for p in params.parameters())
     mamba_layers = cfg.n_layers if cfg.ssm_state else 0
-    attn_layers = cfg.n_layers - mamba_layers
+    shapes = train_shapes(cfg)
     if cfg.family == "hybrid":
-        attn_layers = n_attn_apps(cfg)
-        n += (attn_layers - 1) * sum(p.numel() for p in
-                                     params.shared_block.parameters())
-    attn_fwd = 4 * cfg.head_dim * cfg.n_heads * TRAIN_BATCH * \
-        TRAIN_SEQ * (TRAIN_SEQ + 1) // 2
+        n += (sum(shapes.values()) - 1) * sum(
+            p.numel() for p in params.shared_block.parameters())
+    weights = 6 * n * T
+    if cfg.family in ("encdec", "vlm"):
+        emb = params.embed.numel() + (0 if cfg.tie_embeddings else
+                                      params.unembed.numel())
+        if cfg.family == "encdec":
+            enc = sum(p.numel() for p in params.encoder.parameters())
+            weights = 6 * (enc * TRAIN_BATCH * cfg.n_frames + (n - enc) * T)
+        else:
+            text = TRAIN_BATCH * (TRAIN_SEQ - cfg.n_image_tokens)
+            weights = 6 * ((n - emb) * T + emb * text)
+    attn_fwd = sum(4 * sh[4] * sh[2] * TRAIN_BATCH * _attn_pairs(sh) * c
+                   for sh, c in shapes.items())         # D H B pairs
     ssd_fwd = sum(_ssd_flops(
         TRAIN_BATCH, TRAIN_SEQ, cfg.ssm_nheads, cfg.ssm_headdim,
         cfg.ssm_ngroups, cfg.ssm_state,
         min(cfg.ssm_chunk, _ssd_chunk(TRAIN_SEQ))) if mamba_layers else (0,))
-    return 6 * n * T + 3 * (attn_fwd * attn_layers + ssd_fwd * mamba_layers)
+    return weights + 3 * (attn_fwd + ssd_fwd * mamba_layers)
 
 
-def _train_launches(cfg) -> dict:
-    """Each kernel's launches in the training run: K5 and K8 twice per
-    attention layer (or shared-block application) and Mamba layer and
-    step, the forward and the remat recompute; nothing else."""
-    from repro_torch.models.ssm_stack import n_attn_apps
+def _train_launches(cfg, steps: int) -> tuple:
+    """Each kernel's launches in the training run, in all and K5's by
+    shape: K5 and K8 twice per attention call (``train_shapes``) and
+    Mamba layer and step, the forward and the remat recompute; nothing
+    else."""
+    by_shape = {sh: 2 * c * steps for sh, c in train_shapes(cfg).items()}
     want = {k: 0 for k in launch_counters()}
-    attn = n_attn_apps(cfg) if cfg.family == "hybrid" else \
-        (0 if cfg.ssm_state else cfg.n_layers)
-    want["flash_attention"] = 2 * attn * TRAIN_STEPS
-    want["ssd_scan"] = 2 * (cfg.n_layers if cfg.ssm_state else 0) * TRAIN_STEPS
-    return want
+    want["flash_attention"] = sum(by_shape.values())
+    want["ssd_scan"] = 2 * (cfg.n_layers if cfg.ssm_state else 0) * steps
+    return want, by_shape
 
 
-def phase_train(smi: str, cfg) -> tuple:
+def phase_train(smi: str, cfg, steps: int) -> tuple:
     """The training main path: ``examples/train_lm_torch.py`` at full width
     (``cfg``'s architecture, random weights from the seed, train_4k's
     sequence of 4,096 at batch 4, SGD with warmup_cosine(0.05), remat
-    full), 8 steps, every counter zeroed just before and read just after:
-    K5 (qwen1.5-0.5b's layers, zamba2-1.2b's shared-block applications)
-    and K8 (each Mamba layer) launch exactly twice per layer and step
-    (forward and remat recompute), no other kernel launches.  The loss
-    must be finite at every step and every weight matrix (the embedding,
+    full), ``steps`` steps, every counter zeroed just before and
+    read just after: K5 (each attention call of ``train_shapes``) and K8
+    (each Mamba layer) launch exactly twice per call and step (forward
+    and remat recompute), K5 by shape too, no other kernel launches.  The
+    loss must be finite at every step and every weight matrix (the embedding,
     attention, MLP and Mamba leaves of two or more axes) must have moved
     by the last step.  A leaf whose every element's f32 step stays under
     half a bf16 ulp keeps its value, as in the reference (the update is
@@ -3541,9 +3685,9 @@ def phase_train(smi: str, cfg) -> tuple:
     0.05.  So one more step holds the update itself: every leaf bitwise
     equal to the reference's rule, cast(p32 - lr g32), computed leaf by
     leaf, and each unmoved leaf's largest step is printed against half an
-    ulp.  Then two steps with CUDA events around the forward, backward and
+    ulp.  Then one step with CUDA events around the forward, backward and
     update, and one under the profiler for the device's busy share.
-    Returns (the config, the run's launches)."""
+    Returns (the config, the run's launches, K5's by shape)."""
     import shutil
     import tempfile
     import torch
@@ -3552,9 +3696,10 @@ def phase_train(smi: str, cfg) -> tuple:
     from repro_torch.optim import SGD, warmup_cosine
     sys.path.insert(0, str(ROOT / "examples"))
     import train_lm_torch as twin
+    from repro_torch.kernels.flash_attention import ops as flash_ops
     arch = cfg.name
     log(f"train: {arch} full width via examples/train_lm_torch.py, bf16, "
-        f"batch {TRAIN_BATCH} x seq {TRAIN_SEQ}, {TRAIN_STEPS} steps")
+        f"batch {TRAIN_BATCH} x seq {TRAIN_SEQ}, {steps} steps")
     ckpt_dir = tempfile.mkdtemp(prefix="train_lm_torch_")
     gc.collect()
     torch.cuda.empty_cache()
@@ -3563,23 +3708,25 @@ def phase_train(smi: str, cfg) -> tuple:
     reset_launches()
     try:
         res = twin.main(["--arch", arch, "--seq", str(TRAIN_SEQ), "--batch",
-                         str(TRAIN_BATCH), "--steps", str(TRAIN_STEPS),
+                         str(TRAIN_BATCH), "--steps", str(steps),
                          "--lr", "0.05", "--ckpt-every", "0", "--ckpt-dir",
                          ckpt_dir, "--device", "cuda"])
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
     launches = read_launches()
+    by_shape = flash_ops.LAUNCHES.by_key()
     peak_gb = (torch.cuda.max_memory_allocated() - base_mem) / 1e9
     cfg, params, state = res["cfg"], res["params"], res["state"]
-    want = _train_launches(cfg)
+    want, want_shape = _train_launches(cfg, steps)
     log(f"  launches {launches} (expected {want}: K5 and K8 forward and "
-        f"remat recompute in each of {cfg.n_layers} layers and "
-        f"{TRAIN_STEPS} steps)")
-    if launches != want:
-        raise AssertionError(f"train launches {launches}, expected {want}")
+        f"remat recompute in each attention call and Mamba layer of "
+        f"{steps} steps); K5 by shape {by_shape} (expected {want_shape})")
+    if launches != want or by_shape != want_shape:
+        raise AssertionError(f"train launches {launches}, K5 by shape "
+                             f"{by_shape}; expected {want}, {want_shape}")
     losses = [float(x) for x in res["losses"]]
     log(f"  loss by step: {[round(x, 5) for x in losses]}")
-    if len(losses) != TRAIN_STEPS or not all(map(math.isfinite, losses)):
+    if len(losses) != steps or not all(map(math.isfinite, losses)):
         raise AssertionError(f"train losses {losses}")
     init = build_model(cfg).init(        # the example's weights, seed 0
         torch.Generator(device="cuda").manual_seed(0))
@@ -3600,7 +3747,7 @@ def phase_train(smi: str, cfg) -> tuple:
     mean_s = sum(step_s) / len(step_s)
     tok = TRAIN_BATCH * TRAIN_SEQ
     log(f"train {arch}: step ms (host clock, batch made and copied, ending "
-        f"in a sync; steps {TRAIN_WARM}-{TRAIN_STEPS - 1}) "
+        f"in a sync; steps {TRAIN_WARM}-{steps - 1}) "
         f"{[round(x, 2) for x in ms]}, mean {mean_s * 1e3:.2f}; "
         f"{tok / mean_s:.1f} tokens/s; train_mfu {flops / mean_s / BF16_FLOP_PER_S:.4f} "
         f"({flops / 1e12:.2f} model TFLOP a step over 989 TFLOP/s); peak "
@@ -3608,7 +3755,7 @@ def phase_train(smi: str, cfg) -> tuple:
         f"before; {smi}")
     # one more step, its phases bracketed by CUDA events, then one profiled
     model = build_model(cfg, ExecConfig(loss_chunk=min(TRAIN_SEQ, 128)))
-    opt = SGD(lr=warmup_cosine(0.05, TRAIN_STEPS // 10 + 1, TRAIN_STEPS))
+    opt = SGD(lr=warmup_cosine(0.05, steps // 10 + 1, steps))
     names = [n for n, _ in params.named_parameters()]
 
     def step(batch, ev=None):
@@ -3621,7 +3768,7 @@ def phase_train(smi: str, cfg) -> tuple:
         opt.update(dict(zip(names, grads)), state, params)
         mark(3)
 
-    batch = _train_batch(cfg, TRAIN_STEPS)
+    batch = _train_batch(cfg, steps)
     # the update of one step against the reference's rule, leaf by leaf
     before = [p.detach().clone() for p in params.parameters()]
     loss, _ = model.loss(params, batch)
@@ -3648,9 +3795,8 @@ def phase_train(smi: str, cfg) -> tuple:
         f"{max(ratio.values()) if ratio else 0:.3f} "
         f"(below 1: the cast keeps them)")
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-    for _ in range(2):
-        step(batch, ev)
-        torch.cuda.synchronize()
+    step(batch, ev)              # warm: the step above ran the same work
+    torch.cuda.synchronize()
     fwd, bwd, upd = (ev[i].elapsed_time(ev[i + 1]) for i in range(3))
     prof = profile(activities=[ProfilerActivity.CUDA])
     t0 = time.perf_counter()
@@ -3672,60 +3818,64 @@ def phase_train(smi: str, cfg) -> tuple:
     del model, params, state, res
     gc.collect()
     torch.cuda.empty_cache()
-    return cfg, launches
+    return cfg, launches, by_shape
 
 
-def phase_timing_train(cfg, launches: int, errs, smi: str) -> list:
-    """K5 at ``cfg``'s training forward (B 4, S 4096, bf16, causal,
-    statistics written) beside SDPA's forward, with the launches of the
-    main path's run; then the plain flash backward at that shape beside
-    SDPA's backward (logged, not a kernel row)."""
+def phase_timing_train(cfg, shape, launches: int, steps: int, errs,
+                       smi: str) -> list:
+    """K5 at one of ``cfg``'s training forward shapes (B 4, bf16, causal or
+    without a mask, statistics written) beside SDPA's forward (grouped,
+    ``enable_gqa``, where K/V have fewer heads), with that shape's
+    launches in the main path's run; then the plain flash backward at
+    that shape beside SDPA's backward (logged, not a kernel row)."""
     import torch
-    import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (attention_ref,
                                                      flash_attention_bwd)
     from repro_torch.kernels.flash_attention import ops as flash_ops
-    name = _train_row("flash_attention", cfg)
+    name = _train_row("flash_attention", cfg, _part(shape))
     g = torch.Generator(device="cuda").manual_seed(SEED + 21)
-    q, k, v, do = _train_qkv(g, cfg)
-    Bq, S, H, D = q.shape
+    q, k, v, do = _train_qkv(g, shape)
+    Sq, Sk, H, K, D, causal = shape
+    Bq = q.shape[0]
     scale = D ** -0.5
     qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
                   for x in (q, k, v))
-    kernel = lambda: flash_ops._flash_cuda(q, k, v, True, scale, 0,
+    kernel = lambda: flash_ops._flash_cuda(q, k, v, causal, scale, 0,
                                            stats=True)
     (k_ms, lib_ms), how = device_times(
-        [kernel, lambda: F.scaled_dot_product_attention(qt, kt, vt,
-                                                        is_causal=True)],
-        iters=10)
-    pairs = Bq * H * S * (S + 1) // 2                    # causal pairs
+        [kernel, lambda: sdpa(qt, kt, vt, is_causal=causal)], iters=10)
+    pairs = Bq * H * _attn_pairs(shape)
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * Bq * H * Sq
     row = _row(name, "src/repro_torch/kernels/csrc/flash_attention.cu",
                "src/repro/kernels/flash_attention/kernel.py:84",
                {name: launches}, errs, k_ms,
-               device_ms(lambda: attention_ref(q, k, v, causal=True), iters=3),
-               lib_ms, 2 * 4 * q.numel() + 4 * Bq * H * S, 4 * D * pairs)
-    log(f"timing, K5 at {cfg.name}'s training forward (B {Bq} S {S} H {H} "
-        f"D {D}, statistics written): {k_ms * 1e3:.1f}us device, bound "
-        f"{row['bound_ms'] * 1e3:.2f}us ({row['bound_by']}), plain "
-        f"{row['plain_ms'] * 1e3:.1f}us, library {lib_ms * 1e3:.1f}us (SDPA "
-        f"forward; kernel and SDPA by the {how}), launches {launches} "
-        f"({launches // TRAIN_STEPS} a step); {smi}")
+               device_ms(lambda: attention_ref(q, k, v, causal=causal),
+                         iters=3),
+               lib_ms, nbytes, 4 * D * pairs)
+    what = (f"{cfg.name}'s{_part(shape)} training forward (B {Bq} Sq {Sq} "
+            f"Sk {Sk} H {H} K {K} D {D}, {'causal' if causal else 'no mask'}")
+    log(f"timing, K5 at {what}, statistics written): {k_ms * 1e3:.1f}us "
+        f"device, bound {row['bound_ms'] * 1e3:.2f}us ({row['bound_by']}), "
+        f"plain {row['plain_ms'] * 1e3:.1f}us, library {lib_ms * 1e3:.1f}us "
+        f"(SDPA forward; kernel and SDPA by the {how}), launches {launches} "
+        f"({launches // steps} a step); {smi}")
     out, lse = kernel()
-    o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    o = sdpa(qt, kt, vt, is_causal=causal)
     dot = do.transpose(1, 2).contiguous()
     (b_ms, sb_ms), how = device_times(
-        [lambda: flash_attention_bwd(q, k, v, out, lse, do, causal=True),
+        [lambda: flash_attention_bwd(q, k, v, out, lse, do, causal=causal),
          lambda: torch.autograd.grad(o, (qt, kt, vt), dot,
                                      retain_graph=True)], iters=5)
-    b_bytes = 2 * 8 * q.numel() + 4 * Bq * H * S     # q k v out dout dq dk dv, lse
+    # q k v out dout dq dk dv, and the statistics
+    b_bytes = 2 * (4 * q.numel() + 2 * (k.numel() + v.numel())) + \
+        4 * Bq * H * Sq
     b_flops = 5 * 2 * D * pairs                       # S again, dV, dP, dQ, dK
     b_bound = max(b_bytes / HBM_BYTES_PER_S, b_flops / BF16_FLOP_PER_S) * 1e3
-    calls = launches // TRAIN_STEPS // 2
-    log(f"timing, the plain flash backward at {cfg.name}'s training shape: "
-        f"{b_ms * 1e3:.1f}us device (once per attention layer: "
-        f"{b_ms * calls:.1f}ms a step), bound {b_bound * 1e3:.2f}us "
-        f"(operations), library {sb_ms * 1e3:.1f}us (SDPA backward; both by "
-        f"the {how}); {smi}")
+    calls = launches // steps // 2
+    log(f"timing, the plain flash backward at {what}): {b_ms * 1e3:.1f}us "
+        f"device ({calls} calls a step: {b_ms * calls:.1f}ms a step), bound "
+        f"{b_bound * 1e3:.2f}us (operations), library {sb_ms * 1e3:.1f}us "
+        f"(SDPA backward; both by the {how}); {smi}")
     return [row]
 
 
@@ -3952,22 +4102,29 @@ def phase_family(arch: str, errs) -> list:
     return rows
 
 
-def phase_training(arch: str, errs, smi: str) -> list:
-    """The training phase of one architecture: the kernels' training
-    parity at its shapes, the kernel-path holds, the main path's run and
-    its kernels' training rows."""
+def phase_training(spec: tuple, errs, smi: str) -> list:
+    """The training phase of one architecture, ``spec`` an entry of
+    ``TRAIN_ARCHS`` or ``FAMILY_TRAIN_ARCHS``: the kernels' training
+    parity at each of its shapes (and at its extra architectures'
+    shapes), the kernel-path holds, the main path's run and its kernels'
+    training rows, one per K5 shape."""
     from repro_torch.configs import get_config
+    arch, steps, extras = spec
     cfg = get_config(arch)
-    if cfg.n_heads:
-        errs.update(phase_train_parity(cfg))
+    for shape in train_shapes(cfg):
+        errs.update(phase_train_parity(
+            cfg, shape, _train_row("flash_attention", cfg, _part(shape))))
+    for extra in extras:
+        xcfg = get_config(extra)
+        for shape in train_shapes(xcfg):
+            phase_train_parity(xcfg, shape, "")
     if cfg.ssm_state:
         errs.update(phase_train_parity_ssd(cfg))
     phase_train_holds(cfg)
-    cfg, launches = phase_train(smi, cfg)
+    cfg, launches, by_shape = phase_train(smi, cfg, steps)
     rows = []
-    if launches["flash_attention"]:
-        rows += phase_timing_train(cfg, launches["flash_attention"], errs,
-                                   smi)
+    for shape, n in by_shape.items():
+        rows += phase_timing_train(cfg, shape, n, steps, errs, smi)
     if launches["ssd_scan"]:
         rows += phase_timing_train_ssd(cfg, launches["ssd_scan"], errs, smi)
     return rows
@@ -3990,11 +4147,11 @@ def main(argv) -> int:
     sys.path.insert(0, str(SRC))
     mode = argv[0] if argv else None
     if mode not in (None, "parity", "flash", "gmm", "decode", "ssd",
-                    "profile", "fanout", "train", "gqa", "paper",
-                    "families", "chaos") or len(argv) > 1:
+                    "profile", "fanout", "train", "trainfam", "gqa",
+                    "paper", "families", "chaos") or len(argv) > 1:
         print(f"chip_smoke: arguments {argv}: none, or one of parity, flash, "
-              f"gmm, decode, ssd, profile, fanout, train, gqa, paper, "
-              f"families, chaos", file=sys.stderr)
+              f"gmm, decode, ssd, profile, fanout, train, trainfam, gqa, "
+              f"paper, families, chaos", file=sys.stderr)
         return 2
     parity_only = mode == "parity"        # a new kernel's first, short run
     flash_only = mode == "flash"          # K5 alone: A/B of its designs
@@ -4032,19 +4189,26 @@ def main(argv) -> int:
         return 0
     if mode == "gqa":                     # the grouped-query decoders alone
         rows = [r for arch in GQA_ARCHS for r in phase_gqa(arch, errs)]
-        log(json.dumps({"kernels": rows}))
+        print(json.dumps({"kernels": rows}), flush=True)
         log(f"chip_smoke: {time.perf_counter() - t0:.1f}s")
         log(smi)
         return 0
     if mode == "families":                # whisper-tiny, internvl2-2b alone
         rows = [r for arch in FAMILY_ARCHS for r in phase_family(arch, errs)]
-        log(json.dumps({"kernels": rows}))
+        print(json.dumps({"kernels": rows}), flush=True)
         log(f"chip_smoke: {time.perf_counter() - t0:.1f}s")
         log(smi)
         return 0
     if mode == "train":                   # the training paths alone
-        for arch in TRAIN_ARCHS:
-            phase_training(arch, errs, smi)
+        for spec in TRAIN_ARCHS:
+            phase_training(spec, errs, smi)
+        log(smi)
+        return 0
+    if mode == "trainfam":                # phase 18 alone
+        rows = [r for spec in FAMILY_TRAIN_ARCHS
+                for r in phase_training(spec, errs, smi)]
+        print(json.dumps({"kernels": rows}), flush=True)
+        log(f"chip_smoke: {time.perf_counter() - t0:.1f}s")
         log(smi)
         return 0
     if gmm_only:
@@ -4134,8 +4298,8 @@ def main(argv) -> int:
         rows += phase_gqa(arch, errs)
     for arch in FAMILY_ARCHS:     # the same, the encoder/decoder and the VLM
         rows += phase_family(arch, errs)
-    for arch in TRAIN_ARCHS:
-        rows += phase_training(arch, errs, smi)
+    for spec in TRAIN_ARCHS + FAMILY_TRAIN_ARCHS:   # phases 15, 16 and 18
+        rows += phase_training(spec, errs, smi)
     log(f"chip_smoke: {time.perf_counter() - t0:.1f}s")
     print(smi)
     print(json.dumps({"kernels": rows}))

@@ -8,7 +8,10 @@ qwen1.5-0.5b --seq 4096 --batch 4`` trains the whole 0.46 B-parameter
 model at train_4k's sequence length, its batch cut from 256 to 4
 (``chip_smoke.py`` runs it so, and so ``--arch mamba2-130m`` and
 ``--arch zamba2-1.2b``, whose Mamba layers run the SSD scan kernel K8 in
-the forward and the plain chunked scan in the backward).  The step is
+the forward and the plain chunked scan in the backward, and ``--arch
+whisper-tiny``, ``internvl2-2b`` and ``qwen3-4b``: the encoder/decoder
+batch carries 1,500 frames a row and the VLM's 256 patch embeddings
+ahead of 3,840 text tokens, every attention call through K5).  The step is
 eager (one sync per logged step); checkpoints are the reference's
 layout, so either script resumes the other's.
 

@@ -320,7 +320,7 @@ def run_faasm_fanout(model, params, vocab_size: int, n_requests: int,
     The call's forward is ``model.logits(params, tokens)``, as the
     reference's ``make_infer_function`` runs it, with no extra input: the
     VLM and encoder/decoder families, which need one, raise (ROADMAP
-    "Enc-dec and VLM: the card's training and the fan-out")."""
+    "Enc-dec and VLM: the fan-out")."""
     from repro_torch import overload as oload
     from repro_torch.core import FaasmRuntime
     from repro_torch.state.ddo import VectorAsync
@@ -339,7 +339,7 @@ def run_faasm_fanout(model, params, vocab_size: int, n_requests: int,
             raise NotImplementedError(
                 f"{model.cfg.name}: the Faasm fan-out's forward takes no "
                 f"{model.cfg.family} input (ROADMAP 'Enc-dec and VLM: the "
-                f"card's training and the fan-out')")
+                f"fan-out')")
         if state_wire is not None:
             VectorAsync.create(rt.global_tier, "serve/stats",
                                np.zeros(vocab_size, np.float32))

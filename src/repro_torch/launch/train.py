@@ -9,12 +9,10 @@ trains the reduced config of the architecture on ``smoke_shape``; without
 it the full config trains at ``--shape`` on one device, the batch split
 into microbatches of ``MICROBATCH_ROWS`` rows (``ExecConfig.microbatches``),
 since the reference's production mesh has no counterpart yet:
-``--multi-pod`` raises (ROADMAP item 8, "Multi-device and dry-run").  The
-encoder/decoder and VLM families train on the CPU, their batches carrying
-the frames or patch embeddings ``make_batch`` draws; on the card they
-raise until their holds there exist (ROADMAP "Enc-dec and VLM: the card's
-training and the fan-out").  Each
-step ends in a sync of the card, and its time goes to the
+``--multi-pod`` raises (ROADMAP item 8, "Multi-device and dry-run").  Every
+family trains, the encoder/decoder and VLM batches carrying the frames or
+patch embeddings ``make_batch`` draws, as device tensors beside the
+tokens.  Each step ends in a sync of the card, and its time goes to the
 ``faasm_train_step_ms`` histogram and a ``train.step`` span.  The full
 width on one card at a cut batch is ``examples/train_lm_torch.py``.
 """
@@ -59,7 +57,9 @@ def parser() -> argparse.ArgumentParser:
 
 
 def to_device(batch, device) -> dict:
-    """A numpy batch of ``make_batch`` as tensors on ``device``."""
+    """A numpy batch of ``make_batch`` as tensors on ``device``: the tokens,
+    targets and mask, and the frames or patch embeddings (f32, cast by the
+    model to its dtype on the device)."""
     return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
 
 
@@ -73,12 +73,6 @@ def main(argv: Optional[List[str]] = None) -> dict:
             "item 8, 'Multi-device and dry-run'); the port trains on one "
             "device")
     device = resolve_device(args.device)
-    if device.type == "cuda" and get_config(args.arch).family in (
-            "encdec", "vlm"):
-        raise NotImplementedError(
-            f"{args.arch}: training of the {get_config(args.arch).family} "
-            f"family is held on the CPU only so far (ROADMAP 'Enc-dec and "
-            f"VLM: the card's training and the fan-out'); pass --device cpu")
     if args.smoke:
         cfg = smoke_config(args.arch)
         shape = smoke_shape("train")

@@ -42,13 +42,33 @@ def accumulate_grads(loss_fn: Callable, params: nn.Module,
         loss, metrics, gs = _grads(loss_fn, params, batch)
         return dict(zip(names, gs)), loss, metrics
     mb = next(iter(batch.values())).shape[0] // n_micro
-    acc = [torch.zeros(p.shape, dtype=accum_dtype, device=p.device)
-           for p in params.parameters()]
-    loss_sum = torch.zeros((), dtype=torch.float32, device=acc[0].device)
+    acc = loss_sum = None
     for i in range(n_micro):
         micro = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
         loss, metrics, gs = _grads(loss_fn, params, micro)
-        torch._foreach_add_(acc, [g.to(accum_dtype) for g in gs])
-        loss_sum = loss_sum + loss
-    grads = torch._foreach_div(acc, n_micro)
-    return dict(zip(names, grads)), loss_sum / n_micro, metrics
+        if acc is None:
+            # the first microbatch's gradients are the accumulator (0 + g
+            # is g exactly), so no zero-filled set of leaves is held
+            acc, loss_sum = _owned(gs, accum_dtype), loss.float()
+        else:
+            torch._foreach_add_(acc, [g.to(accum_dtype) for g in gs])
+            loss_sum = loss_sum + loss
+        del gs
+    torch._foreach_div_(acc, n_micro)
+    return dict(zip(names, acc)), loss_sum / n_micro, metrics
+
+
+def _owned(gs, dtype):
+    """``gs`` in ``dtype`` as tensors that may be added into in place:
+    autograd may hand back a broadcast view, or one tensor (or one
+    storage) for two parameters, and those are copied."""
+    out, seen = [], set()
+    for g in gs:
+        g = g.to(dtype)
+        ptr = g.untyped_storage().data_ptr()
+        if not g.is_contiguous() or ptr in seen:
+            g = g.clone(memory_format=torch.contiguous_format)
+            ptr = g.untyped_storage().data_ptr()
+        seen.add(ptr)
+        out.append(g)
+    return out

@@ -37,16 +37,19 @@ pull's overwrite, a frame's in-place apply, the window-miss catch-up's
 move and ``from_device``.  A quantised push takes it for its one read of
 the buffer, a push for its re-base, ``to_device`` for its copy (the
 version read first).  A push re-bases from the content it shipped: the
-one read it made or, from an f32 device replica, the content the copy
-was synced from; never a second read of the live buffer.  A push from
+one read it made or, from a device replica, the content the copy was
+synced from; never a second read of the live buffer.  A push from
 the host buffer drops a stale device copy's delta base and takes back its
 error-feedback debt, so the next device push does not ship it twice.  So
 no two writes of the buffer interleave and no f32 count is lost: a push
-either shipped an add or leaves it pending in ``buffer − base``.  Not
-covered, as device-side writes by design: a device replica of another
-dtype re-bases from the live buffer, ``from_device`` overwrites the
-buffer, and ``to_device(track_delta=True)`` re-arms the device base at
-its sync; a host add racing one of them can be lost.
+either shipped an add or leaves it pending in ``buffer − base``, for
+every dtype and from the device replica too: ``to_device(track_delta=
+True)`` arms the device base from the host base, so an add not yet
+pushed ships with the next device push (from the synced value when a
+cold full pull left the host base stale).  Not covered, as a device-side
+write by design: ``from_device`` writes the device value over the
+buffer, so a host add between the device sync and it is lost
+(``tests/test_torch_quantized_push.py`` holds each of these orders).
 
 Symmetric wire fabric (``repro_torch.state.wire``): every delta crossing the tier
 boundary is a :class:`~repro_torch.state.wire.WireFrame` encoded by a
@@ -172,6 +175,10 @@ class Replica:
     dirty_chunks: Set[int] = field(default_factory=set)
     full: bool = False                   # whole value present
     base: Optional[np.ndarray] = None    # snapshot for delta-accumulating push
+    # the base predates a cold full pull over it: it says nothing of what
+    # the global tier has seen, so ``to_device(track_delta=True)`` arms the
+    # device base from the synced value instead
+    base_stale: bool = False
     version: int = 0                     # bumped on every host-side mutation
     residual: Optional[np.ndarray] = None  # f32 error-feedback carry (int8 wire)
     device: Optional[DeviceReplica] = None
@@ -264,13 +271,15 @@ class LocalTier:
 
         Returns the device value.  A no-op when the device copy is already
         at the replica's current write version.  With ``track_delta`` the
-        device-side base snapshot is (re)taken at this sync point, arming a
-        subsequent device-native ``push_delta``.  A host-side error-feedback
-        residual moves to the device with the value (ownership transfer —
-        the debt must not be applied twice).  While device-side writes are
-        pending (``update_device`` without a push or ``from_device``),
-        ``track_delta`` is a no-op: re-arming the base to the unsynced value
-        would silently drop that delta from every future push.
+        device-side base is (re)armed from the host base (the value's
+        content at its last push), arming a subsequent device-native
+        ``push_delta`` that also ships host writes not yet pushed.  A
+        host-side error-feedback residual moves to the device with the
+        value (ownership transfer — the debt must not be applied twice).
+        While device-side writes are pending (``update_device`` without a
+        push or ``from_device``), ``track_delta`` is a no-op: re-arming the
+        base to the unsynced value would silently drop that delta from
+        every future push.
 
         The returned tensor is the device replica itself: write results
         back with :meth:`update_device` (a new tensor), not in place."""
@@ -304,7 +313,16 @@ class LocalTier:
                     r.residual = None            # device owns the debt now
                 d.synced_version = ver
             if track_delta and not d.device_dirty:
-                d.base = d.value.clone()
+                # armed from the host base, the content the global tier
+                # last took from this replica: host writes not yet pushed
+                # (buffer − base) ship with the next device push instead
+                # of vanishing into a base taken from the synced value
+                if (r.base is not None and r.base.size == r.buf.size
+                        and not r.base_stale):
+                    d.base = torch.tensor(r.base.view(dt),
+                                          device=self.device)
+                else:
+                    d.base = d.value.clone()
             return d.value
         finally:
             r.lock.release_write()
@@ -358,6 +376,7 @@ class LocalTier:
                     r.base = np.zeros(r.buf.size, np.uint8)
                 m = min(hb.size, r.base.size)
                 r.base[:m] = hb[:m]
+                r.base_stale = r.base_stale and m < r.base.size
             if d.residual is not None:
                 # np.array copies: a CPU tensor's .numpy() shares its memory
                 r.residual = np.array(host_f32(d.residual), dtype=np.float32)
@@ -564,7 +583,8 @@ class LocalTier:
         so the base must say the global tier has seen it — otherwise the
         next ``push_delta`` would re-push every peer write since the old
         snapshot.  The cold path keeps the legacy leave-the-base semantics
-        (callers re-arm with ``track_delta``/``snapshot_base``)."""
+        and marks the base stale (callers re-arm with ``snapshot_base`` or
+        with ``track_delta``, which then arms from the synced value)."""
         tel = _TEL
         t0 = tel.now() if tel is not None else 0.0
         moved = 0
@@ -587,6 +607,8 @@ class LocalTier:
             r.version += 1
             if refresh_base and r.base is not None:
                 self._refresh_base(r)
+            elif r.base is not None:
+                r.base_stale = True
         return moved
 
     def _refresh_locked(self, key: str, r: Replica, size: int,
@@ -656,6 +678,7 @@ class LocalTier:
         with r.buf_lock:
             fv += move
         bv[:] = gv
+        r.base_stale = False
         r.global_version = ver
         r.pull_residual = None
         r.version += 1
@@ -788,22 +811,25 @@ class LocalTier:
             r.base = r.buf.copy()
         else:
             r.base[:] = r.buf                # reuse the allocation
+        r.base_stale = False
 
     @staticmethod
     def _rebase_pushed(r: Replica, pushed: np.ndarray) -> None:
-        """Re-stamp the delta base from the f32 content a push actually read
-        (replica write lock held).  Unlike :meth:`_refresh_base` this never
-        re-reads the live buffer: co-located faaslets write it HOGWILD with
-        no lock, so a base taken from a second read silently absorbs any add
-        that landed between the push's read and the refresh — a lost update
-        the delta stream can never repair.  Rebasing from the pushed
-        snapshot keeps such an add pending for the next delta instead."""
+        """Re-stamp the delta base from the content a push actually read, in
+        the value's own dtype (replica write lock held).  Unlike
+        :meth:`_refresh_base` this never re-reads the live buffer:
+        co-located faaslets write it HOGWILD with no lock, so a base taken
+        from a second read silently absorbs any add that landed between the
+        push's read and the refresh — a lost update the delta stream can
+        never repair.  Rebasing from the pushed snapshot keeps such an add
+        pending for the next delta instead."""
         if r.base is None or r.base.size != r.buf.size:
             # faasmlint: disable=tier-copy -- replica-internal base snapshot
             r.base = r.buf.copy()
-        bv = r.base.view(np.float32)
+        bv = r.base.view(pushed.dtype)
         n = min(bv.size, pushed.size)
         bv[:n] = pushed[:n]
+        r.base_stale = r.base_stale and n < bv.size
 
     @staticmethod
     def _host_push_owns(r: Replica) -> None:
@@ -982,6 +1008,7 @@ class LocalTier:
                 # it read.  Later pushes rebase inside add_inplace from the
                 # read itself.
                 r.base = local.view(np.uint8)
+            r.base_stale = False         # re-stamped from the read either way
             r.dirty_chunks.clear()
             # the pusher's buffer is the post-push content: keep its base
             # version current (same rule as _after_push) so its own warm
@@ -1144,7 +1171,7 @@ class LocalTier:
                     eff = eff + d.residual
                 # codec.encode brings the frame to the host (a synchronising
                 # copy), so nothing in flight still reads r.base when
-                # _refresh_base mutates it below
+                # _rebase_pushed mutates it below
                 try:
                     frame, residual = codec.encode(eff, base, backend=backend,
                                                    device=self.device)
@@ -1161,10 +1188,10 @@ class LocalTier:
                 # pending device writes the host chunks stay dirty: their
                 # content was NOT in this push.
                 host_synced = not d.device_dirty
-                if host_synced and dt == np.float32:
+                if host_synced:
                     # the host base follows the content the device copy was
                     # synced from, never a second read of the live buffer
-                    snap = host_f32(local)
+                    snap = local.detach().cpu().numpy().reshape(-1)
             else:
                 self._host_push_owns(r)
                 local = r.buf.view(dt)
@@ -1172,8 +1199,8 @@ class LocalTier:
                 if r.residual is None or r.residual.size != local.size:
                     r.residual = np.zeros(local.size, np.float32)
                 with r.buf_lock:
-                    snap = local.astype(np.float32)  # one coherent read
-                eff = snap + r.residual
+                    snap = np.array(local)       # one coherent read
+                eff = snap.astype(np.float32, copy=False) + r.residual
                 try:
                     frame, residual = codec.encode(eff, base, backend=backend,
                                                    device=self.device)
@@ -1188,10 +1215,7 @@ class LocalTier:
             frame.dtype = dt
             if host_synced:
                 with r.buf_lock:
-                    if snap is not None and dt == np.float32:
-                        self._rebase_pushed(r, snap)
-                    else:
-                        self._refresh_base(r)
+                    self._rebase_pushed(r, snap)
                 r.dirty_chunks.clear()
         finally:
             r.lock.release_write()

@@ -1235,13 +1235,25 @@ def test_flash_kernel_statistics_without_keys(card, dtype):
     assert int(out.abs().sum()) == 0 and bool((lse == -1e30).all())
 
 
+TRAIN_FLASH_CASES = [
+    # B, Sq, Sk, H, K, D, causal, q_offset: the training shapes' kinds
+    (2, 256, 256, 16, 8, 128, True, 0),         # D 128, G 2 (internvl2-2b)
+    (2, 256, 256, 36, 4, 128, True, 0),         # D 128, G 9 (starcoder2-7b)
+    (2, 100, 600, 6, 6, 64, False, 0),          # no mask, Sk past a 512 tile
+    (1, 64, 600, 16, 8, 128, False, 0),         # the same at D 128, G 2
+]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
-@pytest.mark.parametrize("case", [FLASH_CASES[i] for i in (1, 3, 4, 9, 10)])
+@pytest.mark.parametrize("case", [FLASH_CASES[i] for i in (1, 3, 4, 9, 10)]
+                         + TRAIN_FLASH_CASES)
 def test_flash_attention_fn_gradients_on_card(card, case, dtype):
     """K5 forward, plain flash backward: the gradients against autograd
-    through ``attention_ref`` on the same CUDA tensors."""
+    through ``attention_ref`` on the same CUDA tensors.  The backward
+    works from the statistics K5 wrote (each row's log-sum-exp); its
+    512-key tiles end ragged where Sk is not a multiple of 512."""
     B, Sq, Sk, H, K, D, causal, off = case
     rng = np.random.default_rng(2)
     q = _randn(rng, (B, Sq, H, D), dtype, card)
@@ -1381,6 +1393,17 @@ def _train_step_kernel_path_matches_plain_path(card, dtype, arch):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ["whisper-tiny", "internvl2-2b"])
+def test_family_smoke_train_step_kernel_path_matches_plain_path(card, arch,
+                                                                dtype):
+    """As above for the encoder/decoder and VLM smoke models, the batch
+    carrying the frames or patch embeddings ``make_batch`` draws: every
+    attention call through ``FlashAttentionFn``."""
+    _train_step_kernel_path_matches_plain_path(card, dtype, arch)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("remat,per_layer", [("none", 1), ("full", 2),
                                              ("dots", 2)])
 def test_k5_launches_per_train_step(card, remat, per_layer):
@@ -1393,6 +1416,37 @@ def test_k5_launches_per_train_step(card, remat, per_layer):
     torch.autograd.grad(loss, list(params.parameters()))
     torch.cuda.synchronize()
     assert flash_ops.LAUNCHES.value - n == per_layer * cfg.n_layers
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("remat,per_layer", [("none", 1), ("full", 2),
+                                             ("dots", 2)])
+@pytest.mark.parametrize("arch", ["whisper-tiny", "internvl2-2b"])
+def test_family_k5_launches_per_train_step(card, arch, remat, per_layer):
+    """K5 once per attention call in the forward and once more in the
+    remat recompute, by shape: whisper-tiny's encoder self-attention over
+    the frames (no mask), its decoder's causal self-attention and its
+    cross-attention over the frames in each layer; internvl2-2b's causal
+    self-attention over the patches and the text in each layer."""
+    cfg, params, batch = _train_setup(card, "bfloat16", arch)
+    model = build_model(cfg, ExecConfig(remat=remat, loss_chunk=16))
+    H, K, D, L = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.n_layers
+    S = batch["tokens"].shape[1]
+    if cfg.family == "encdec":
+        F = cfg.n_frames
+        want = {(F, F, H, K, D, False): cfg.n_enc_layers,
+                (S, S, H, K, D, True): L, (S, F, H, K, D, False): L}
+    else:
+        S += cfg.n_image_tokens
+        want = {(S, S, H, K, D, True): L}
+    before = flash_ops.LAUNCHES.by_key()
+    loss, _ = model.loss(params, batch)
+    torch.autograd.grad(loss, list(params.parameters()))
+    torch.cuda.synchronize()
+    got = {k: n - before.get(k, 0)
+           for k, n in flash_ops.LAUNCHES.by_key().items()}
+    assert {k: n for k, n in got.items() if n} == \
+        {k: per_layer * n for k, n in want.items()}
 
 
 @pytest.mark.cuda

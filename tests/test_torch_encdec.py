@@ -434,13 +434,15 @@ def test_train_launcher_on_the_cpu(tmp_path, capsys):
     assert "done" in capsys.readouterr().out
 
 
-def test_train_launcher_refuses_the_card(monkeypatch):
-    """On the card the launcher refuses this family, naming the ROADMAP
-    entry, before it builds anything."""
-    monkeypatch.setattr(train, "resolve_device",
-                        lambda d: torch.device("cuda"))
-    with pytest.raises(NotImplementedError, match="ROADMAP 'Enc-dec and VLM"):
-        train.main(["--arch", ARCH, "--smoke"])
+def test_train_launcher_refuses_the_card(monkeypatch, tmp_path):
+    """The family trains on the card as every other does: asked for the
+    card (``--device cuda``, the default) on a machine with none, the
+    launcher raises the no-card error, not a refusal of the family."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for device in ([], ["--device", "cuda"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            train.main(["--arch", ARCH, "--smoke", "--steps", "1",
+                        "--ckpt-dir", str(tmp_path)] + device)
 
 
 # -- the serving launcher ------------------------------------------------------------

@@ -215,6 +215,35 @@ def test_accumulate_grads_matches_jax(n_micro, accum):
     _assert_trees_close(to_jax_params(grads, model.cfg), jgrads, tol)
 
 
+
+def test_accumulate_grads_owns_aliased_gradients():
+    """Autograd hands ``a`` and ``b`` of ``a + b`` one tensor and ``c`` of
+    ``c.sum()`` a broadcast view; the accumulator, seeded from the first
+    microbatch, still adds each microbatch into each leaf once."""
+
+    class Three(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.a = torch.nn.Parameter(torch.ones(3, 4))
+            self.b = torch.nn.Parameter(torch.ones(3, 4))
+            self.c = torch.nn.Parameter(torch.ones(3, 4))
+
+    def loss_fn(m, batch):
+        loss = ((m.a + m.b) * batch["x"]).sum() + m.c.sum()
+        return loss, {"loss": loss}
+
+    x = torch.from_numpy(
+        np.random.default_rng(0).standard_normal((4, 3, 4)).astype(np.float32))
+    grads, loss, _ = toptim.accumulate_grads(loss_fn, Three(), {"x": x}, 2)
+    want = (x[:2].sum(0) + x[2:].sum(0)) / 2
+    torch.testing.assert_close(grads["a"], want)
+    torch.testing.assert_close(grads["b"], want)
+    torch.testing.assert_close(grads["c"], torch.ones(3, 4))
+    assert float(loss) == pytest.approx(float((2 * x).sum() / 2 + 12.0),
+                                        rel=1e-5)
+
+
+
 def _grad_pairs(seed=0):
     rng = np.random.default_rng(seed)
     shapes = {"w": (8, 33), "b": (33,), "m": (4, 5, 6)}
