@@ -5,17 +5,18 @@ unless ``--device cpu`` is given.
 Prints ``name,us_per_call,derived`` CSV rows.
 
 Run:  PYTHONPATH=src:. python -m benchmarks.run_torch [table ...] [--device cpu]
-      (tables: fig6 fig7 fig8 fig9 tab3 dispatch; default: all.  The
-      reference's ``roofline`` table reads the dry-run's artifacts, which
-      the port does not have yet: ROADMAP queue 1, "Multi-device and
-      dry-run")
+      (tables: fig6 fig7 fig8 fig9 tab3 dispatch roofline; default: all.
+      ``roofline`` reads the port's dry-run artifacts,
+      ``artifacts/dryrun_torch``, written by ``python -m
+      repro_torch.launch.dryrun``; it runs on no device)
 """
 import argparse
 import traceback
 
 from benchmarks import (bench_coldstart_torch, bench_dispatch_torch,
                         bench_inference_torch, bench_matmul_torch,
-                        bench_micro_torch, bench_sgd_training_torch)
+                        bench_micro_torch, bench_roofline_torch,
+                        bench_sgd_training_torch)
 from repro_torch.kernels.common import resolve_device
 
 TABLES = {
@@ -25,6 +26,7 @@ TABLES = {
     "fig9": lambda d: bench_micro_torch.main(["--device", d.type]),
     "tab3": lambda d: bench_coldstart_torch.main(d),
     "dispatch": lambda d: bench_dispatch_torch.main(device=d),
+    "roofline": lambda d: bench_roofline_torch.main(),
 }
 
 

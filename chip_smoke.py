@@ -99,7 +99,7 @@ Phases, each fatal on failure:
    CUDA graph of the call, a kernel); the state-push
    kernels also at 16 Mi elements, and one host-side encode of numpy
    operands beside the host codec; then the warm prefill and decode loop,
-   eager and graphed side by side (three runs each, and the capture
+   eager and graphed side by side (two runs each, and the capture
    time), and one profiled run of each for the device's busy share;
 8. moe serve: the launcher's main path on deepseek-moe-16b at full width
    (16.4 B parameters, bf16, random weights from the seed; batch 4,
@@ -231,6 +231,31 @@ Phases, each fatal on failure:
    (qwen3-4b 4), K5 exactly 24, 48 and 72 times a step, by shape too
    (whisper 8 at each of its three); the same reports, with K5 and the
    plain flash backward timed at every one of these shapes beside SDPA.
+19. mesh: (a) the dry-run (``repro_torch.launch.dryrun``) of
+   qwen1.5-0.5b's train_4k on the 16x16 and 2x16x16 production meshes
+   and its decode_32k on 16x16, each in a process of its own over torch's
+   fake process group (256 or 512 ranks that exist as a world size only;
+   the three run beside (b) and (c)): each ``ok`` with FLOPs per device
+   above 0, the multi-pod train cell with collective bytes above 0, each
+   cell's counts and roofline terms at the H100's data-sheet constants
+   printed; (b) the counter (``distributed/cost_analysis.py``) over
+   qwen1.5-0.5b's train step at phase 15's shape on one device, fake
+   tensors, the kernel route: K5 counted exactly 48 times a step and the
+   counted FLOPs no fewer than 6 N T, printed beside phase 15's measured
+   step (FLOPs, bytes, the bound, measured over bound, the counted FLOPs
+   beside ``train_mfu``'s, the estimated peak memory beside the measured;
+   no second timed step); (c) a 1-rank NCCL group and a 1-device CUDA
+   ``DeviceMesh``: qwen1.5-0.5b at full width placed from host leaves in
+   the reference's layout by ``distributed.elastic.reshard_params`` under
+   ``ShardingRules``, one SGD step through
+   ``launch/steps.py::make_step_for_shape`` with every counter zeroed
+   just before: K5 exactly 48 launches and no other kernel, the loss,
+   every gradient leaf and every updated parameter bitwise the
+   plain-tensor ``make_train_step``'s from the same host leaves and
+   batch, ``to_host`` bitwise the host leaves; the group torn down after.
+   A single card checks multi-device code on a 1-device mesh only; the
+   production meshes exist here only as a fake group, and multi-rank
+   numerics are held on the CPU (``tests/test_torch_distributed.py``).
 
 Phase 2 also holds K8 against its plain version (and the sequential
 oracle) at both models' prefill shapes, in f32 at the reference's 1e-4
@@ -269,7 +294,8 @@ phase-2 case, times it at both SSM prefill shapes with the time of each of
 its kernels, and stops.  ``python3 chip_smoke.py train`` builds, holds the attention kernels,
 runs phases 15 and 16 and stops; ``python3 chip_smoke.py trainfam``
 the same for phase 18, printing its kernels line.  ``python3 chip_smoke.py gqa``
-builds, holds the attention kernels and runs phase 14 alone;
+builds, holds the attention kernels and runs phase 14 alone; ``python3
+chip_smoke.py mesh`` the same for phase 19;
 ``python3 chip_smoke.py families`` the same for phase 17.  ``python3
 chip_smoke.py paper`` builds, holds K1-K4 and runs the paper phase
 (phase 6's second half) alone; ``python3 chip_smoke.py chaos`` the same
@@ -303,6 +329,7 @@ SRC = ROOT / "src"
 
 ARCH, BATCH, PROMPT, NEW_TOKENS, SEED = "qwen1.5-0.5b", 4, 512, 32, 0
 PROFILE_STEPS = 8          # decode steps a decode-only warm profile covers
+WARM_RUNS = 2              # unprofiled runs of each warm serving loop
 MOE_ARCH = "deepseek-moe-16b"
 SSM_ARCHS = ("mamba2-130m", "zamba2-1.2b")
 # the grouped-query decoders (qwen3-4b and granite-3-8b share H 32 over K 8)
@@ -1149,15 +1176,14 @@ def _flash_row(name, B, S, H, K, D, launches, errs, g, Sk=None,
     import torch
     from repro_torch.kernels.flash_attention import (attention_ref,
                                                      flash_attention)
+    from repro_torch.kernels.flash_attention import ops as flash_ops
     bf16, dev = torch.bfloat16, "cuda"
     Sk = S if Sk is None else Sk
     q = torch.randn(B, S, H, D, generator=g, device=dev).to(bf16)
     k = torch.randn(B, Sk, K, D, generator=g, device=dev).to(bf16)
     v = torch.randn(B, Sk, K, D, generator=g, device=dev).to(bf16)
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
-    pairs = S * (S + 1) // 2 if causal else S * Sk     # causal pairs only
-    flops = 4 * D * B * H * pairs
+    flops, nbytes = flash_ops.cost(B, S, Sk, H, K, D, causal, 2)
     kernel = lambda: flash_attention(q, k, v, causal=causal)
     back_to_back = call_ms(kernel)
     queued, how = queued_ms(kernel)
@@ -1243,11 +1269,11 @@ def _decode_row(name, B, S, H, K, D, launches, errs, g, full=False) -> tuple:
     (``_library_times``)."""
     from repro_torch.kernels.decode_attention import (decode_attention,
                                                       decode_attention_ref)
+    from repro_torch.kernels.decode_attention import ops as decode_ops
     n = S if full else S - 1
     q, kc, vc, lengths, (qt, kt, vt, mask) = _decode_operands(g, B, S, H, K,
                                                               D, n)
-    nbytes = 2 * (q.numel() + 2 * B * n * K * D + q.numel())
-    flops = 4 * D * B * H * n
+    flops, nbytes = decode_ops.cost(B, S, H, K, D, 2, n)
     kernel = lambda: decode_attention(q, kc, vc, lengths)
     back_to_back = call_ms(kernel)
     k_ms, lib_ms, how, note = _library_times(kernel, qt, kt, vt,
@@ -2198,6 +2224,7 @@ def phase_timing_state_push(launches, errs) -> list:
     from repro_torch.kernels.state_push import hostcodec
     from repro_torch.kernels.state_push import ops as sp
     g = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    cost = lambda name: sp.cost(name, R)[::-1]          # (bytes, flops)
     rows, sizes = [], ((STATS_NUMEL, ""), (SP_BIG, "[16Mi]"))
     src = "src/repro_torch/kernels/csrc/state_push.cu"
     ref = "src/repro/kernels/state_push/kernel.py:"
@@ -2213,19 +2240,19 @@ def phase_timing_state_push(launches, errs) -> list:
              lambda: sp.quantize_rows(lr, br, with_residual=True),
              lambda: sp.quantize_rows(lr, br, with_residual=True,
                                       backend="torch"),
-             None, R * 128 * (4 + 4 + 1 + 4) + R * 4, 9 * R * 128),
+             None, *cost("quantize_delta")),
             ("quantize_fp8", 78,
              lambda: sp.quantize_rows(lr, br, fp8=True, with_residual=True),
              lambda: sp.quantize_rows(lr, br, fp8=True, with_residual=True,
                                       backend="torch"),
-             None, R * 128 * (4 + 4 + 1 + 4) + R * 4, 9 * R * 128),
+             None, *cost("quantize_fp8")),
             ("apply_delta", 96, lambda: sp.apply_rows(gr, q, s),
              lambda: sp.apply_rows(gr, q, s, backend="torch"),
              lambda: torch.addcmul(gr, q, s),
-             R * 128 * (4 + 1 + 4) + R * 4, 2 * R * 128),
+             *cost("apply_delta")),
             ("push", 113, lambda: sp.push_rows(lr, br, gr),
              lambda: sp.push_rows(lr, br, gr, backend="torch"),
-             None, R * 128 * 16, 2 * R * 128),
+             None, *cost("push")),
         ]
         step = float((lr - br).abs().max()) * INT8_STEP
         for name, line, kernel, plain, library, nbytes, flops in cases:
@@ -2637,10 +2664,11 @@ def _gmm_row(name, x, ws, gs, launches, errs) -> dict:
     weights in the 50 MB L2: at decode one call streams ~115 MB."""
     import itertools
     from repro_torch.kernels.moe_gmm import gmm, gmm_ref
+    from repro_torch.kernels.moe_gmm import ops as gmm_ops
     T, d = x.shape
-    f = ws[0].shape[2]
+    E, f = ws[0].shape[0], ws[0].shape[2]
     active = int((gs > 0).sum())
-    nbytes = 2 * (active * d * f + T * d + T * f)
+    flops, nbytes = gmm_ops.cost(T, d, f, E, 2, active)
     nxt = itertools.cycle(ws).__next__
     kernel = lambda: gmm(x, nxt(), gs)
     library = _grouped_mm(x, ws, gs)
@@ -2654,11 +2682,11 @@ def _gmm_row(name, x, ws, gs, launches, errs) -> dict:
                "src/repro/kernels/moe_gmm/kernel.py:37", {name: launches},
                errs, device_ms(kernel),
                device_ms(lambda: gmm_ref(x, nxt(), gs), iters=5), lib_ms,
-               nbytes, 2 * T * d * f)
+               nbytes, flops)
     lib = (f"{lib_ms * 1e3:.1f}us (grouped_mm)" if lib_ms is not None
            else "none")
     log(f"  {name}: T {T} d {d} f {f}, {active} experts "
-        f"({nbytes / 1e6:.1f} MB, {2 * T * d * f / 1e9:.3f} GFLOP), "
+        f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP), "
         f"{len(ws)} weight tensors in turn: {row['ms'] * 1e3:.1f}us device, "
         f"{queued_ms(kernel)[0] * 1e3:.1f}us queued (CUDA events), "
         f"back-to-back {call_ms(kernel) * 1e3:.1f}us, bound "
@@ -2887,11 +2915,11 @@ def _busy(prof) -> tuple:
 def phase_warm_serve(res, decode_only: bool = False) -> None:
     """Warm prefill and decode-loop times on the weights and prompt of the
     main-path run, of the eager loop (``_serve_once``) and of the
-    launcher's graphed loop (``ServeGraphs.generate``), three runs each,
+    launcher's graphed loop (``ServeGraphs.generate``), ``WARM_RUNS`` each,
     then one run of each under torch.profiler for the device's busy
     share and the ops that hold it (with ``decode_only``, the profiler
     covers the loop's last ``PROFILE_STEPS`` decode steps alone, beside
-    the unprofiled runs' wall of the same steps, three more for the
+    the unprofiled runs' wall of the same steps, ``WARM_RUNS`` more for the
     graphed loop: reading a trace of all 31 steps took 10-20 s a model).  The graphed profile replays the
     graphs as ``_serve_once`` runs the eager loop; it must hold one record
     for each node of the graphs it replays (counted by libcuda's
@@ -2905,12 +2933,13 @@ def phase_warm_serve(res, decode_only: bool = False) -> None:
     steps = NEW_TOKENS - 1
     k = PROFILE_STEPS if decode_only else steps   # decode steps profiled
     runs = [_serve_once(model, params, tokens, extra=extra, ctx_steps=k)
-            for _ in range(3)]
-    g_runs = [graphs.generate(tokens, NEW_TOKENS) for _ in range(3)]
+            for _ in range(WARM_RUNS)]
+    g_runs = [graphs.generate(tokens, NEW_TOKENS) for _ in range(WARM_RUNS)]
     g_runs = [(g.prefill_s, g.decode_s) for g in g_runs]
     rate = lambda r: BATCH * steps / r[-1]        # the whole decode loop
     host = [replay_host_ms(graphs, tokens) for _ in range(2)]
-    log(f"warm serve {name} (3 runs each), eager | graphed: prefill ms "
+    log(f"warm serve {name} ({WARM_RUNS} runs each), eager | graphed: "
+        f"prefill ms "
         f"{[r[0] * 1e3 for r in runs]} | {[r[0] * 1e3 for r in g_runs]}, "
         f"decode tok/s {[rate(r) for r in runs]} | "
         f"{[rate(r) for r in g_runs]}; capture {res['capture_s'] * 1e3:.1f}ms"
@@ -2926,7 +2955,7 @@ def phase_warm_serve(res, decode_only: bool = False) -> None:
             ("graphed", lambda **kw: _serve_graphed(graphs, tokens, **kw),
              g_runs)):
         if decode_only and loop == "graphed":   # the wall of the same k
-            warm_runs = [serve_fn(ctx_steps=k) for _ in range(3)]
+            warm_runs = [serve_fn(ctx_steps=k) for _ in range(WARM_RUNS)]
         prof = profile(activities=[ProfilerActivity.CUDA])
         if decode_only:
             wall = pick(serve_fn(decode_ctx=lambda: prof, ctx_steps=k))
@@ -3133,6 +3162,7 @@ def phase_timing_ssd(res, launches: int, errs, Bt: int = BATCH,
     three with f32 B and C, two with bf16 (exact in TF32: no lo part)."""
     import torch
     from repro_torch.kernels.ssd_scan import ssd
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.kernels.ssd_scan.ops import grids as ssd_grids
     g = torch.Generator(device="cuda").manual_seed(SEED + 7)
     cfg = res["cfg"]
@@ -3140,10 +3170,9 @@ def phase_timing_ssd(res, launches: int, errs, Bt: int = BATCH,
     Q = min(cfg.ssm_chunk, _ssd_chunk(S))
     x, dt, A, B, C, D, _ = _ssd_inputs(g, Bt, S, H, P, G, N,
                                        torch.bfloat16, "model", False)
-    nbytes = (2 * x.numel() + 4 * dt.numel() + 2 * (B.numel() + C.numel())
-              + 8 * H + 4 * Bt * H * P * N             # A, D, initial state
-              + 2 * x.numel() + 4 * Bt * H * P * N)     # y, final state
-    flops_cb, flops_intra, flops_state = _ssd_flops(Bt, S, H, P, G, N, Q)
+    _, nbytes = ssd_ops.cost(Bt, S, H, P, G, N, Q, x.element_size())
+    flops_cb, flops_intra, flops_state = ssd_ops.flop_parts(Bt, S, H, P, G,
+                                                            N, Q)
     bf16 = B.dtype == torch.bfloat16
     cb_rate = BF16_FLOP_PER_S if bf16 else FP32_FLOP_PER_S
     products = 3 * flops_intra + (2 if bf16 else 3) * flops_state
@@ -3601,25 +3630,6 @@ def phase_train_holds(cfg) -> None:
     torch.cuda.empty_cache()
 
 
-def _ssd_flops(Bt: int, S: int, H: int, P: int, G: int, N: int,
-               Q: int) -> tuple:
-    """The chunked SSD scan's products over the causal half (j <= i) of
-    each chunk: C·Bᵀ once per (batch, group, chunk); (C·Bᵀ ⊙ L)·(dt·x),
-    and the two state terms (C·stateᵀ and the state update), per (batch,
-    head, chunk).  Returns (C·Bᵀ, intra-chunk, state) FLOP."""
-    nc = -(-S // Q)
-    pairs = Q * (Q + 1) // 2
-    return (Bt * G * nc * 2 * pairs * N, Bt * H * nc * 2 * pairs * P,
-            Bt * H * nc * 4 * Q * N * P)
-
-
-def _attn_pairs(shape) -> int:
-    """Query-key pairs of one row and head at a K5 launch key: the causal
-    half S (S + 1) / 2, or Sq Sk without a mask."""
-    Sq, Sk, causal = shape[0], shape[1], shape[5]
-    return Sq * (Sq + 1) // 2 if causal else Sq * Sk
-
-
 def _train_flops(cfg, params) -> float:
     """Model FLOP of one step: 6 N T for the weights, each weight counted
     over the tokens that pass it (the tied embedding once, as the
@@ -3628,9 +3638,12 @@ def _train_flops(cfg, params) -> float:
     unembedding over the tokens; the VLM's layers over its 4,096
     positions and its unembedding over the 3,840 text tokens), plus 3
     times the forward of attention (QK^T and PV over the pairs of
-    ``_attn_pairs``) at every shape of ``train_shapes`` and of the SSD
-    scan's products (``_ssd_flops``) in each Mamba layer: the backward
+    ``flash_attention/ops.py::causal_pairs``) at every shape of
+    ``train_shapes`` and of the SSD scan's products
+    (``ssd_scan/ops.py::flop_parts``) in each Mamba layer: the backward
     twice the forward; no remat recompute."""
+    from repro_torch.kernels.flash_attention.ops import causal_pairs
+    from repro_torch.kernels.ssd_scan.ops import flop_parts
     T = TRAIN_BATCH * TRAIN_SEQ
     n = sum(p.numel() for p in params.parameters())
     mamba_layers = cfg.n_layers if cfg.ssm_state else 0
@@ -3648,9 +3661,10 @@ def _train_flops(cfg, params) -> float:
         else:
             text = TRAIN_BATCH * (TRAIN_SEQ - cfg.n_image_tokens)
             weights = 6 * ((n - emb) * T + emb * text)
-    attn_fwd = sum(4 * sh[4] * sh[2] * TRAIN_BATCH * _attn_pairs(sh) * c
+    attn_fwd = sum(4 * sh[4] * sh[2] * TRAIN_BATCH
+                   * causal_pairs(sh[0], sh[1], sh[5]) * c
                    for sh, c in shapes.items())         # D H B pairs
-    ssd_fwd = sum(_ssd_flops(
+    ssd_fwd = sum(flop_parts(
         TRAIN_BATCH, TRAIN_SEQ, cfg.ssm_nheads, cfg.ssm_headdim,
         cfg.ssm_ngroups, cfg.ssm_state,
         min(cfg.ssm_chunk, _ssd_chunk(TRAIN_SEQ))) if mamba_layers else (0,))
@@ -3753,6 +3767,8 @@ def phase_train(smi: str, cfg, steps: int) -> tuple:
         f"({flops / 1e12:.2f} model TFLOP a step over 989 TFLOP/s); peak "
         f"memory {peak_gb:.2f} GB above the {base_mem / 1e9:.2f} GB held "
         f"before; {smi}")
+    MEASURED[arch] = {"step_ms": mean_s * 1e3, "peak_gb": peak_gb,
+                      "model_flops": flops}
     # one more step, its phases bracketed by CUDA events, then one profiled
     model = build_model(cfg, ExecConfig(loss_chunk=min(TRAIN_SEQ, 128)))
     opt = SGD(lr=warmup_cosine(0.05, steps // 10 + 1, steps))
@@ -3844,14 +3860,15 @@ def phase_timing_train(cfg, shape, launches: int, steps: int, errs,
                                            stats=True)
     (k_ms, lib_ms), how = device_times(
         [kernel, lambda: sdpa(qt, kt, vt, is_causal=causal)], iters=10)
-    pairs = Bq * H * _attn_pairs(shape)
-    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * Bq * H * Sq
+    pairs = Bq * H * flash_ops.causal_pairs(Sq, Sk, causal)
+    flops, nbytes = flash_ops.cost(Bq, Sq, Sk, H, K, D, causal, 2,
+                                   stats=True)
     row = _row(name, "src/repro_torch/kernels/csrc/flash_attention.cu",
                "src/repro/kernels/flash_attention/kernel.py:84",
                {name: launches}, errs, k_ms,
                device_ms(lambda: attention_ref(q, k, v, causal=causal),
                          iters=3),
-               lib_ms, nbytes, 4 * D * pairs)
+               lib_ms, nbytes, flops)
     what = (f"{cfg.name}'s{_part(shape)} training forward (B {Bq} Sq {Sq} "
             f"Sk {Sk} H {H} K {K} D {D}, {'causal' if causal else 'no mask'}")
     log(f"timing, K5 at {what}, statistics written): {k_ms * 1e3:.1f}us "
@@ -3891,6 +3908,7 @@ def phase_timing_train_ssd(cfg, launches: int, errs, smi: str) -> list:
     backward's operands being f32, whichever is longer."""
     import torch
     from repro_torch.kernels.ssd_scan import ssd
+    from repro_torch.kernels.ssd_scan.ops import flop_parts
     name = _train_row("ssd_scan", cfg)
     rows = phase_timing_ssd({"cfg": cfg}, launches, errs, Bt=TRAIN_BATCH,
                             S=TRAIN_SEQ, name=name)
@@ -3903,7 +3921,7 @@ def phase_timing_train_ssd(cfg, launches: int, errs, smi: str) -> list:
     Bt, S, H, P = xs[0].shape
     G, N = xs[3].shape[2], xs[3].shape[3]
     Q = min(cfg.ssm_chunk, _ssd_chunk(S))
-    b_flops = 2 * sum(_ssd_flops(Bt, S, H, P, G, N, Q))
+    b_flops = 2 * sum(flop_parts(Bt, S, H, P, G, N, Q))
     b_bytes = 2 * sum(t.numel() * t.element_size() for t in xs) + \
         y.numel() * y.element_size()
     b_bound = max(b_bytes / HBM_BYTES_PER_S, b_flops / TF32_FLOP_PER_S) * 1e3
@@ -4130,6 +4148,252 @@ def phase_training(spec: tuple, errs, smi: str) -> list:
     return rows
 
 
+MEASURED: dict = {}     # phase 15's step ms, peak GB, model FLOPs by arch
+# phase 19: the dry-run's cells on the production meshes, (shape, multi-pod)
+MESH_CELLS = (("train_4k", False), ("train_4k", True), ("decode_32k", False))
+
+
+def start_mesh_dryrun() -> tuple:
+    """Phase 19a, started: the dry-run (``repro_torch.launch.dryrun``) of
+    qwen1.5-0.5b's train_4k on pod16x16 and pod2x16x16 and its decode_32k
+    on pod16x16, each cell in a process of its own over torch's fake
+    process group (256 or 512 ranks that exist as a world size only),
+    the three at once and beside phases 19b and 19c.  Returns (the
+    artifacts' directory, the processes)."""
+    import os
+    import tempfile
+    out = tempfile.mkdtemp(prefix="dryrun_torch_")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    return out, [(shape, multi, subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", ARCH,
+         "--shape", shape, "--mesh", "multi" if multi else "single",
+         "--out", out, "--force"], env=env, cwd=str(ROOT),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        for shape, multi in MESH_CELLS]
+
+
+def phase_mesh_dryrun(started: tuple) -> None:
+    """Phase 19a, read: each cell must come back ``ok`` with FLOPs per
+    device above 0, the multi-pod train cell with collective bytes above
+    0; each cell's roofline line is printed.  These are counts at the
+    H100's data-sheet constants, not times."""
+    out, procs = started
+    try:
+        _read_mesh_cells(out, procs)
+    finally:
+        for *_, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def _read_mesh_cells(out: str, procs) -> None:
+    for shape, multi, proc in procs:
+        _, err = proc.communicate(timeout=300)
+        mesh = "pod2x16x16" if multi else "pod16x16"
+        path = Path(out) / mesh / f"{ARCH}__{shape}.json"
+        if proc.returncode or not path.exists():
+            raise AssertionError(f"dry-run {mesh} {shape}: rc "
+                                 f"{proc.returncode}: {err[-2000:]}")
+        rec = json.loads(path.read_text())
+        if rec["status"] != "ok" or not rec["flops_per_device"] > 0:
+            raise AssertionError(f"dry-run {mesh} {shape}: {rec.get('error', rec)}")
+        if multi and not rec["collective_bytes_per_device"] > 0:
+            raise AssertionError(f"dry-run {mesh} {shape}: no collective bytes")
+        r = rec["roofline"]
+        log(f"mesh, dry-run (counts at H100 constants, fake group of "
+            f"{rec['n_devices']} ranks) {mesh} {ARCH} {shape}: FLOPs/device "
+            f"{rec['flops_per_device']:.4g}, bytes/device "
+            f"{rec['bytes_per_device']:.4g}, collective bytes/device "
+            f"{rec['collective_bytes_per_device']:.4g} "
+            f"{rec['collectives']['counts']}, peak {rec['memory']['peak_bytes'] / 1e9:.2f} GB; "
+            f"T_compute {r['t_compute_s'] * 1e3:.3f} ms, T_memory "
+            f"{r['t_memory_s'] * 1e3:.3f} ms, T_collective "
+            f"{r['t_collective_s'] * 1e3:.3f} ms, {r['dominant']}, useful "
+            f"{r['useful_flops_ratio']:.3f}; traced in {rec['trace_s']} s")
+
+
+def phase_mesh_count(smi: str) -> None:
+    """Phase 19b: the counter (``distributed/cost_analysis.py``) over
+    qwen1.5-0.5b's train step at phase 15's shape (B 4, S 4,096, remat
+    full, loss chunks of 128, SGD; one device, the kernel route, fake
+    tensors): K5 counted exactly 48 times a step (phase 15's held
+    launches) and the counted FLOPs no fewer than 6 N T.  Printed beside
+    phase 15's measured step (no second timed step): the FLOPs, bytes,
+    the bound max(FLOPs / 989e12, bytes / 3.35e12), measured over bound,
+    the counted FLOPs beside ``train_mfu``'s formula, and the estimated
+    peak memory beside phase 15's."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.dryrun import count_step
+    from repro_torch.models import ExecConfig, build_model
+    from repro_torch.optim import SGD
+    cfg = get_config(ARCH)
+    shape = ShapeConfig("train_b4", "train", TRAIN_SEQ, TRAIN_BATCH)
+    model = build_model(cfg, ExecConfig(loss_chunk=min(TRAIN_SEQ, 128)))
+    t0 = time.perf_counter()
+    costs, arg_bytes, _ = count_step(model, None, shape, SGD(lr=0.05))
+    n = cfg.param_count()
+    floor = 6 * n * TRAIN_BATCH * TRAIN_SEQ
+    k5 = costs.kernels.get("flash_attention", 0)
+    want = 2 * cfg.n_layers
+    if k5 != want or costs.kernels.keys() - {"flash_attention"}:
+        raise AssertionError(f"counted kernel calls {costs.kernels}; K5 must "
+                             f"be {want} a step and nothing else")
+    if costs.flops < floor:
+        raise AssertionError(f"counted {costs.flops:.4g} FLOPs under 6 N T "
+                             f"= {floor:.4g}")
+    bound_s = max(costs.flops / BF16_FLOP_PER_S, costs.bytes / HBM_BYTES_PER_S)
+    got = MEASURED.get(ARCH)
+    seen = ("phase 15 not run in this mode" if got is None else
+            f"phase 15's step {got['step_ms']:.2f} ms = "
+            f"{got['step_ms'] / 1e3 / bound_s:.2f}x the bound; its "
+            f"train_mfu formula {got['model_flops'] / 1e12:.2f} TFLOP "
+            f"(counted / formula {costs.flops / got['model_flops']:.3f}); "
+            f"peak {got['peak_gb']:.2f} GB measured above the weights")
+    log(f"mesh, counter over {ARCH}'s train step (B {TRAIN_BATCH} S "
+        f"{TRAIN_SEQ}, one device, kernel route; traced in "
+        f"{time.perf_counter() - t0:.1f} s): K5 {k5} a step (held), "
+        f"{costs.flops / 1e12:.3f} TFLOP counted >= 6 N T "
+        f"{floor / 1e12:.3f} (held), {costs.bytes / 1e9:.2f} GB moved, bound "
+        f"{bound_s * 1e3:.2f} ms ({'operations' if costs.flops / BF16_FLOP_PER_S >= costs.bytes / HBM_BYTES_PER_S else 'bytes'}); "
+        f"estimated peak {costs.peak_bytes / 1e9:.2f} GB above the "
+        f"{arg_bytes / 1e9:.2f} GB of arguments; {seen}; {smi}")
+
+
+class _GradTap:
+    """An optimizer that keeps the gradients it is handed (a copy) and
+    applies the wrapped optimizer's update."""
+
+    def __init__(self, opt):
+        self.opt, self.grads = opt, None
+
+    def init(self, params):
+        return self.opt.init(params)
+
+    def update(self, grads, state, params):
+        self.grads = {k: g.detach().clone() for k, g in grads.items()}
+        return self.opt.update(grads, state, params)
+
+
+def phase_mesh_step() -> None:
+    """Phase 19c: a train step through a mesh on the card.  A 1-rank NCCL
+    group and a 1-device CUDA ``DeviceMesh`` of axes (data, model);
+    qwen1.5-0.5b at full width, its weights drawn from the seed and taken
+    to the host in the reference's layout (``weights.to_jax_params``),
+    placed from those host leaves by ``distributed.elastic.
+    reshard_params`` under ``ShardingRules`` on the mesh; one SGD step
+    through ``launch/steps.py::make_step_for_shape`` at phase 15's shape,
+    every counter zeroed just before: K5 exactly 48 launches and no other
+    kernel; the loss, every gradient leaf and every updated parameter
+    bitwise equal to one step of ``make_train_step`` on plain tensors from
+    the same host leaves and batch; ``to_host`` of the placed parameters
+    bitwise the host leaves.  The group is torn down after."""
+    import socket
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed.elastic import reshard_params, to_host
+    from repro_torch.distributed.sharding import ShardingRules
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import make_step_for_shape, make_train_step
+    from repro_torch.models import ExecConfig, build_model
+    from repro_torch.models.weights import (from_jax_params, to_jax_params,
+                                            trainable)
+    from repro_torch.optim import SGD
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1)
+    try:
+        cfg = get_config(ARCH)
+        shape = ShapeConfig("train_b4", "train", TRAIN_SEQ, TRAIN_BATCH)
+        model = build_model(cfg, ExecConfig(loss_chunk=min(TRAIN_SEQ, 128)))
+        host = to_jax_params(model.init(
+            torch.Generator(device="cuda").manual_seed(SEED)), cfg)
+        mesh = make_mesh((1, 1), ("data", "model"))
+        rules = ShardingRules(mesh, cfg)
+        placed = trainable(reshard_params(host, cfg, mesh, rules=rules))
+        back = to_host(placed)
+        bad = [k for k, a, b in _host_pairs(host, back) if not a == b]
+        if bad:
+            raise AssertionError(f"to_host of the placed parameters differs "
+                                 f"from the host leaves at {bad[:4]}")
+        batch = _train_batch(cfg, 0)
+        tap = _GradTap(SGD(lr=0.05))
+        step, _ = make_step_for_shape(model, rules, shape, optimizer=tap)
+        reset_launches()
+        _, _, metrics = step(placed, tap.init(placed), batch)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        want = {k: 0 for k in launches}
+        want["flash_attention"] = 2 * cfg.n_layers
+        if launches != want:
+            raise AssertionError(f"mesh step launches {launches}, expected "
+                                 f"{want}")
+        mesh_grads = {k: g.to_local() for k, g in tap.grads.items()}
+        plain = trainable(from_jax_params(host, cfg, "cuda"))
+        ptap = _GradTap(SGD(lr=0.05))
+        _, _, pmetrics = make_train_step(model, ptap, shape)(
+            plain, ptap.init(plain), batch)
+        torch.cuda.synchronize()
+        diff = [n for n in mesh_grads
+                if not torch.equal(mesh_grads[n], ptap.grads[n])]
+        diff += [n for (n, a), b in zip(placed.named_parameters(),
+                                        plain.parameters())
+                 if not torch.equal(a.to_local(), b)]
+        if not torch.equal(metrics["loss"], pmetrics["loss"]) or diff:
+            raise AssertionError(
+                f"mesh step vs plain step: loss {float(metrics['loss'])} vs "
+                f"{float(pmetrics['loss'])}; leaves apart: {diff[:6]}")
+        log(f"mesh, one SGD step of {ARCH} at full width through a 1-device "
+            f"CUDA mesh (data 1 x model 1, NCCL): K5 {launches['flash_attention']} "
+            f"launches (held), loss {float(metrics['loss']):.5f} and all "
+            f"{len(mesh_grads)} gradient leaves and updated parameters "
+            f"bitwise the plain-tensor step's; to_host bitwise the host "
+            f"leaves")
+        del placed, plain, mesh_grads, tap, ptap
+    finally:
+        dist.destroy_process_group()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _host_pairs(a, b, path=""):
+    """(path, leaf of a's bytes, leaf of b's bytes) over two host trees in
+    the reference's layout."""
+    import numpy as np
+    if isinstance(a, dict):
+        for k in a:
+            yield from _host_pairs(a[k], b[k], f"{path}.{k}")
+    elif isinstance(a, list):
+        for i, (x, y) in enumerate(zip(a, b)):
+            yield from _host_pairs(x, y, f"{path}[{i}]")
+    else:
+        raw = lambda t: np.asarray(getattr(t, "bits", t)).tobytes()
+        yield path, raw(a), raw(b)
+
+
+def phase_mesh(smi: str) -> None:
+    """Phase 19: the dry-run's production meshes (a, in processes of their
+    own while b and c run), the counter beside phase 15's step (b), a
+    train step through a 1-device mesh (c)."""
+    t0 = time.perf_counter()
+    started = start_mesh_dryrun()
+    try:
+        phase_mesh_count(smi)
+        phase_mesh_step()
+    except BaseException:
+        for *_, proc in started[1]:          # stop what the phase started
+            proc.kill()
+            proc.wait()
+        raise
+    phase_mesh_dryrun(started)
+    log(f"mesh: phase 19 took {time.perf_counter() - t0:.1f}s")
+
+
 def main(argv) -> int:
     try:
         import torch
@@ -4148,10 +4412,10 @@ def main(argv) -> int:
     mode = argv[0] if argv else None
     if mode not in (None, "parity", "flash", "gmm", "decode", "ssd",
                     "profile", "fanout", "train", "trainfam", "gqa",
-                    "paper", "families", "chaos") or len(argv) > 1:
+                    "paper", "families", "chaos", "mesh") or len(argv) > 1:
         print(f"chip_smoke: arguments {argv}: none, or one of parity, flash, "
               f"gmm, decode, ssd, profile, fanout, train, trainfam, gqa, "
-              f"paper, families, chaos", file=sys.stderr)
+              f"paper, families, chaos, mesh", file=sys.stderr)
         return 2
     parity_only = mode == "parity"        # a new kernel's first, short run
     flash_only = mode == "flash"          # K5 alone: A/B of its designs
@@ -4196,6 +4460,11 @@ def main(argv) -> int:
     if mode == "families":                # whisper-tiny, internvl2-2b alone
         rows = [r for arch in FAMILY_ARCHS for r in phase_family(arch, errs)]
         print(json.dumps({"kernels": rows}), flush=True)
+        log(f"chip_smoke: {time.perf_counter() - t0:.1f}s")
+        log(smi)
+        return 0
+    if mode == "mesh":                    # phase 19 alone
+        phase_mesh(smi)
         log(f"chip_smoke: {time.perf_counter() - t0:.1f}s")
         log(smi)
         return 0
@@ -4300,6 +4569,7 @@ def main(argv) -> int:
         rows += phase_family(arch, errs)
     for spec in TRAIN_ARCHS + FAMILY_TRAIN_ARCHS:   # phases 15, 16 and 18
         rows += phase_training(spec, errs, smi)
+    phase_mesh(smi)                                  # phase 19
     log(f"chip_smoke: {time.perf_counter() - t0:.1f}s")
     print(smi)
     print(json.dumps({"kernels": rows}))

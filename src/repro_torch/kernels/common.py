@@ -17,6 +17,18 @@ explicit reference mode for tests and for the comparison phase of
 Host numpy operands carry no device of their own: the caller names one
 (:func:`resolve_device`), the counterpart of ``resolve_backend``'s
 accelerator choice in the reference.
+
+Two more kinds of operand reach the wrappers in a traced or sharded step:
+
+  * a *fake* tensor (``FakeTensorMode``) has a shape and no data: :func:`dispatch` sends it to the ``"fake"`` route, where
+    the wrapper returns outputs of the kernel's shapes and dtypes with no
+    launch, and reports the kernel's FLOPs and bytes (its package's
+    ``ops.cost``) to the counters open on this thread
+    (:func:`report_cost`, ``distributed/cost_analysis.py``);
+  * a ``DTensor``: :func:`local_operands` checks that its placements make
+    each rank's local computation the whole answer (batch or heads
+    sharded, or everything replicated), hands the wrapper the local
+    shards, and :func:`from_local` wraps the local outputs back.
 """
 from __future__ import annotations
 
@@ -174,7 +186,8 @@ def resolve_device(device) -> torch.device:
 
 
 def dispatch(backend: str | None, x: torch.Tensor) -> str:
-    """``"torch"`` (plain version) or ``"cuda"`` (the kernel) for ``x``.
+    """``"torch"`` (plain version), ``"cuda"`` (the kernel) or ``"fake"``
+    (the kernel's shapes, no launch: ``x`` has no data) for ``x``.
 
     Every kernel wrapper passes through here, which makes it the
     time-sliced cancellation checkpoint for long compute loops, as
@@ -185,9 +198,181 @@ def dispatch(backend: str | None, x: torch.Tensor) -> str:
     b = backend or "auto"
     if b not in BACKENDS:
         raise ValueError(f"backend {b!r} not in {BACKENDS}")
-    if b == "torch" or x.device.type == "cpu":
+    if b == "torch":
+        return "torch"
+    if is_fake(x):
+        return "fake"
+    if x.device.type == "cpu":
         return "torch"
     if x.device.type == "cuda":
         return "cuda"
     raise ValueError(f"no kernel for tensors on {x.device}; "
                      f"use a CUDA or CPU tensor")
+
+
+# -- fake tensors: shapes without data ---------------------------------------
+
+def is_fake(x: torch.Tensor) -> bool:
+    """A ``FakeTensor`` (``FakeTensorMode``): a shape on a device, no data.
+    A tensor on the meta device is not one: it names no device, and
+    :func:`dispatch` refuses it."""
+    if type(x) is torch.Tensor or type(x) is torch.nn.Parameter:
+        return False
+    from torch._subclasses.fake_tensor import FakeTensor
+    return isinstance(x, FakeTensor)
+
+
+_COST_SINKS = threading.local()      # the cost counters open on this thread
+
+
+def open_cost_sink(sink) -> None:
+    """Add ``sink`` (it has ``kernel(name, flops, nbytes)``) to this
+    thread's open counters; :func:`close_cost_sink` removes it."""
+    _COST_SINKS.open = (*getattr(_COST_SINKS, "open", ()), sink)
+
+
+def close_cost_sink(sink) -> None:
+    _COST_SINKS.open = tuple(s for s in getattr(_COST_SINKS, "open", ())
+                             if s is not sink)
+
+
+def report_cost(name: str, flops: float, nbytes: float) -> None:
+    """A fake-route call of kernel ``name``: its FLOPs and bytes by its
+    package's ``ops.cost``, for every counter open on this thread.  No
+    launch is counted."""
+    for sink in getattr(_COST_SINKS, "open", ()):
+        sink.kernel(name, flops, nbytes)
+
+
+# -- DTensor operands -----------------------------------------------------------
+
+def as_dtensor(x):
+    """``x`` if it is a ``DTensor``, else None (a plain tensor never
+    imports ``torch.distributed``)."""
+    if type(x) is torch.Tensor or type(x) is torch.nn.Parameter:
+        return None
+    from torch.distributed.tensor import DTensor
+    return x if isinstance(x, DTensor) else None
+
+
+def local_operands(what: str, operands, batch_dims, head_dims, seq_dims=()):
+    """The local shards of a kernel's ``DTensor`` operands, where each
+    rank's local computation is the whole answer for its shard.
+
+    ``batch_dims[i]`` and ``head_dims[i]`` name operand i's batch and head
+    dims (None where it has none); ``seq_dims[i]`` its key/cache sequence
+    dim.  On each mesh dim every operand must be:
+
+      * replicated (every rank computes the same thing), or
+      * sharded on its batch dim (operands without one replicated), or
+      * sharded on its head dim; key/value operands replicated there while
+        the queries are sharded by heads (fewer KV heads than ranks, GQA)
+        are sliced to the KV heads the rank's query heads read.
+
+    An operand held whole on a mesh dim that another operand's shards
+    split takes its gradient back as a partial sum over that dim (each
+    rank's share, from its own rows or heads).
+
+    A key/value operand sharded along its sequence is all-gathered on that
+    mesh dim first (sequence-parallel attention is not computed shard by
+    shard).  Anything else raises, naming the placement.  Returns (local
+    tensors, the mesh, the first operand's placements), or None when no
+    operand is a ``DTensor``."""
+    dts = [as_dtensor(x) for x in operands]
+    if not any(d is not None for d in dts):
+        return None
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = next(d for d in dts if d is not None).device_mesh
+    if any(d is None for d in dts):
+        raise ValueError(f"{what}: DTensor and plain operands mixed")
+    seq = dict(enumerate(seq_dims)) if seq_dims else {}
+    ops = list(dts)
+    for i, d in enumerate(ops):            # gather sequence shards first
+        s = seq.get(i)
+        pl = list(d.placements)
+        if s is not None and any(isinstance(p, Shard) and p.dim == s
+                                 for p in pl):
+            ops[i] = d.redistribute(mesh, [
+                Replicate() if isinstance(p, Shard) and p.dim == s else p
+                for p in pl])
+    slices = {}                  # operand -> (mesh dim, its size, group G)
+    for m in range(mesh.ndim):
+        pls = [d.placements[m] for d in ops]
+        for i, p in enumerate(pls):
+            if isinstance(p, Partial) or not isinstance(p, (Shard, Replicate)):
+                raise ValueError(f"{what}: operand {i} is {p} on mesh dim "
+                                 f"{m}; the kernel takes Shard or Replicate")
+        shard = [p.dim if isinstance(p, Shard) else None for p in pls]
+        if all(s is None for s in shard):
+            continue
+        if all(s == b for s, b in zip(shard, batch_dims)
+               if s is not None or b is not None):
+            continue
+        if all(s == h for s, h in zip(shard, head_dims)
+               if s is not None or h is not None):
+            continue
+        # queries sharded by heads, some key/value operands replicated
+        if shard[0] is not None and shard[0] == head_dims[0] and all(
+                s is None or s == h for s, h in zip(shard, head_dims)):
+            n = mesh.size(m)
+            H = ops[0].shape[head_dims[0]]
+            for i, (s, h) in enumerate(zip(shard, head_dims)):
+                if s is None and h is not None and i:
+                    K = ops[i].shape[h]
+                    Hl, G = H // n, H // K
+                    if Hl % G and G % Hl or i in slices:
+                        raise ValueError(
+                            f"{what}: {H} query heads over {n} ranks do not "
+                            f"split into whole KV groups of {G} on one mesh "
+                            f"dim")
+                    slices[i] = (m, n, G)
+            continue
+        raise ValueError(f"{what}: placements {[d.placements for d in ops]} "
+                         f"on mesh dim {m} shard neither the batch nor the "
+                         f"heads of every operand")
+    # an operand held whole on a mesh dim that splits the computation
+    # gets back a partial sum there: its rank's share of the gradient
+    split = {m for m in range(mesh.ndim)
+             if any(isinstance(d.placements[m], Shard) for d in ops)}
+    locs = []
+    for i, d in enumerate(ops):
+        grad_pl = [Partial() if m in split and isinstance(p, Replicate)
+                   else p for m, p in enumerate(d.placements)]
+        t = d.to_local(grad_placements=grad_pl)
+        if i not in slices:
+            locs.append(t)
+            continue
+        m, n, G = slices[i]
+        Hl, c = ops[0].shape[head_dims[0]] // n, mesh.get_coordinate()[m]
+        first, last = c * Hl // G, ((c + 1) * Hl - 1) // G
+        locs.append(t.narrow(head_dims[i], first, last - first + 1))
+    return locs, mesh, ops[0].placements
+
+
+def batch_only(x, *dims):
+    """A ``DTensor`` with every shard off ``dims`` (its batch dim, and any
+    dim a computation is local in, as a depthwise convolution is in its
+    channels) gathered; ``x`` as it is if it is plain or has none."""
+    d = as_dtensor(x)
+    if d is None:
+        return x
+    from torch.distributed.tensor import Replicate, Shard
+    want = [p if not isinstance(p, Shard) or p.dim in dims
+            else Replicate() for p in d.placements]
+    return d if want == list(d.placements) else d.redistribute(
+        d.device_mesh, want)
+
+
+def from_local(t: torch.Tensor, mesh, placements, shape) -> torch.Tensor:
+    """A kernel's local output as a ``DTensor`` of global ``shape`` with
+    ``placements`` (made contiguous, as its global strides say; no check
+    across ranks)."""
+    from torch.distributed.tensor import DTensor
+    t = t.contiguous()
+    stride, acc = [], 1
+    for n in reversed(shape):
+        stride.append(acc)
+        acc *= n
+    return DTensor.from_local(t, mesh, placements, run_check=False,
+                              shape=torch.Size(shape),
+                              stride=tuple(reversed(stride)))

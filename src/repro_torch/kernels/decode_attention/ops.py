@@ -10,6 +10,12 @@ to :func:`ref.decode_attention_ref`.  The lengths stay on the device: the
 wrapper never reads them, so a decode step has no host sync, and the
 launch is the same at every step (graph-safe: the kernel leaves its
 counters at 0).
+
+A fake tensor takes the kernel's route without a launch (the output's
+shape, :func:`cost` reported for the cache's full length, the lengths
+having no data), and ``DTensor`` operands run on their local shards
+(``common.local_operands``; a cache sharded along its sequence is
+gathered first).
 """
 from __future__ import annotations
 
@@ -22,7 +28,9 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.common import (DTYPE_CODES, HEAD_DIMS,
                                         LaunchCounter, check_operands, cdiv,
-                                        dispatch, round_up)
+                                        dispatch, from_local, is_fake,
+                                        local_operands, report_cost,
+                                        round_up)
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 
 LAUNCHES = LaunchCounter()  # launches, by the cache's (S, H, K, D)
@@ -41,9 +49,25 @@ def decode_attention(q, k, v, lengths, *, scale: float | None = None,
     """q: (B, H, D); k/v: (B, S, K, D); lengths: (B,) int32 -> (B, H, D)."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
+    shards = local_operands("decode_attention", (q, k, v, lengths),
+                            (0, 0, 0, 0), (1, 2, 2, None), (None, 1, 1, None))
+    if shards is not None:
+        (ql, kl, vl, nl), mesh, pl = shards
+        out = decode_attention(ql, kl, vl, nl, scale=scale, backend=backend)
+        return from_local(out, mesh, pl, q.shape)
     if dispatch(backend, q) == "torch":
         return decode_attention_ref(q, k, v, lengths, scale=scale)
     return _decode_cuda(q, k, v, lengths, float(scale))
+
+
+def cost(B: int, S: int, H: int, K: int, D: int, itemsize: int,
+         n: int | None = None) -> tuple:
+    """(FLOPs, bytes) of one K6 call over ``n`` valid positions of each
+    row's cache (all S unless given): q K^T and P V (4 D per position and
+    head), q read, n positions of K and V read, the output written."""
+    n = S if n is None else n
+    return (4 * D * B * H * n,
+            itemsize * (2 * B * H * D + 2 * B * n * K * D))
 
 
 @functools.lru_cache(maxsize=None)
@@ -122,8 +146,12 @@ def _decode_cuda(q, k, v, lengths, scale):
     if lengths.shape != (B,) or lengths.dtype != torch.int32:
         raise ValueError(f"decode_attention: lengths must be ({B},) int32, "
                          f"got {tuple(lengths.shape)} {lengths.dtype}")
-    check_operands("decode_attention", q, k, v, lengths)
     out = torch.empty_like(q)
+    if is_fake(q):
+        report_cost("decode_attention", *cost(B, S, H, K, D,
+                                              q.element_size()))
+        return out
+    check_operands("decode_attention", q, k, v, lengths)
     if out.numel() == 0 or S == 0:
         return out.zero_()
     gt = heads_per_block(H // K)

@@ -17,6 +17,12 @@ counterpart of the reference's ``_flash_xla_bwd`` (plain jnp there: the
 Pallas kernel is forward only).  On the CPU, autograd differentiates
 :func:`ref.attention_ref`.  Nothing falls back: a kernel that fails to
 build or launch raises in training as in serving.
+
+A fake tensor (a traced step: ``distributed/cost_analysis.py``) takes the
+kernel's route without a launch: the output (and statistics) of the
+kernel's shapes, and :func:`cost` reported.  ``DTensor`` operands run the
+kernel on their local shards where the placements make that the whole
+answer (``common.local_operands``: batch or heads sharded).
 """
 from __future__ import annotations
 
@@ -27,7 +33,8 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.common import (DTYPE_CODES, HEAD_DIMS,
                                         LaunchCounter, check_operands,
-                                        dispatch)
+                                        dispatch, from_local, is_fake,
+                                        local_operands, report_cost)
 from repro_torch.kernels.flash_attention.ref import (attention_ref,
                                                      flash_attention_bwd)
 
@@ -44,6 +51,13 @@ def flash_attention(q, k, v, *, causal: bool = True, scale: float | None = None,
     as in :func:`ref.attention_ref`."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
+    shards = local_operands("flash_attention", (q, k, v), (0, 0, 0),
+                            (2, 2, 2), (None, 1, 1))
+    if shards is not None:
+        (ql, kl, vl), mesh, pl = shards
+        out = flash_attention(ql, kl, vl, causal=causal, scale=scale,
+                              q_offset=q_offset, backend=backend)
+        return from_local(out, mesh, pl, q.shape)
     if dispatch(backend, q) == "torch":
         return attention_ref(q, k, v, causal=causal, scale=scale,
                              q_offset=q_offset)
@@ -75,9 +89,32 @@ class FlashAttentionFn(torch.autograd.Function):
         return dq, dk, dv, None, None, None
 
 
+def causal_pairs(Sq: int, Sk: int, causal: bool, q_offset: int = 0) -> int:
+    """Query-key pairs one (row, head) of K5 scores: under the causal mask
+    query i (at absolute position ``q_offset + i``) sees keys 0 ..
+    q_offset + i, at most Sk; without it Sq x Sk."""
+    if not causal:
+        return Sq * Sk
+    full = max(0, min(Sq, Sk - q_offset))       # rows below the last key
+    pairs = full * q_offset + full * (full + 1) // 2
+    return pairs + (Sq - full) * Sk
+
+
+def cost(B: int, Sq: int, Sk: int, H: int, K: int, D: int, causal: bool,
+         itemsize: int, q_offset: int = 0, stats: bool = False) -> tuple:
+    """(FLOPs, bytes) of one K5 call: QK^T and PV over the visible pairs
+    (4 D per pair and head), and q, k, v read and the output written once
+    (with ``stats``, the (B, H, Sq) f32 log-sum-exp too)."""
+    flops = 4 * D * B * H * causal_pairs(Sq, Sk, causal, q_offset)
+    nbytes = itemsize * (2 * B * Sq * H * D + 2 * B * Sk * K * D)
+    return flops, nbytes + (4 * B * H * Sq if stats else 0)
+
+
 def _flash_cuda(q, k, v, causal, scale, q_offset, stats: bool = False):
     """The kernel call: (out, lse), lse the rows' (B, H, Sq) f32
-    log-sum-exp when ``stats`` is asked for, else None."""
+    log-sum-exp when ``stats`` is asked for, else None.  On a fake tensor,
+    no launch: empty outputs of the kernel's shapes and :func:`cost`
+    reported."""
     B, Sq, H, D = q.shape
     if k.ndim != 4 or v.shape != k.shape or k.shape[0] != B or k.shape[3] != D:
         raise ValueError(f"flash_attention: q {tuple(q.shape)}, "
@@ -91,10 +128,15 @@ def _flash_cuda(q, k, v, causal, scale, q_offset, stats: bool = False):
         raise ValueError(f"flash_attention: dtypes {q.dtype}, {k.dtype}, "
                          f"{v.dtype}; the kernel takes one of "
                          f"{tuple(DTYPE_CODES)}")
-    check_operands("flash_attention", q, k, v)   # TMA needs 16-byte aligned
     out = torch.empty_like(q)
     lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
            if stats else None)
+    if is_fake(q):
+        report_cost("flash_attention", *cost(B, Sq, Sk, H, K, D, causal,
+                                             q.element_size(), q_offset,
+                                             stats))
+        return out, lse
+    check_operands("flash_attention", q, k, v)   # TMA needs 16-byte aligned
     if out.numel() == 0:
         return out, lse
     fn = _build.function("flash_attention", "flash_attention_fwd", _ARGTYPES)

@@ -11,7 +11,11 @@ rows per expert (decode), tensor cores for many (sorted prefill); f32
 runs on the CUDA cores.  The reference's ragged pad and scatter (every
 group padded to ``block_m`` rows around the Pallas call) are not ported,
 and neither are its TPU tile knobs ``block_m``/``block_n``: the kernels
-mask ragged groups themselves and pick their own tiles.
+mask ragged groups themselves and pick their own tiles.  A fake tensor
+takes the kernel's route without a launch (:func:`cost` reported for
+every expert active, the group sizes having no data); ``DTensor``
+operands run on their local values only when replicated on every mesh
+dim (experts sharded across ranks would need an all-to-all first).
 """
 from __future__ import annotations
 
@@ -21,7 +25,9 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.common import (DTYPE_CODES, LaunchCounter,
-                                        check_operands, dispatch, refuse_grad)
+                                        check_operands, dispatch, from_local,
+                                        is_fake, local_operands, refuse_grad,
+                                        report_cost)
 from repro_torch.kernels.moe_gmm.ref import gmm_ref
 
 # wrapper calls that launched a kernel, also by the (d, f) of the call
@@ -50,10 +56,24 @@ def plan(T: int, d: int, f: int, E: int) -> str:
 def gmm(x, w, group_sizes, *, backend: str | None = None):
     """Grouped matmul (see ref.gmm_ref).  x rows must be sorted by expert;
     group_sizes is (E,) int32 on x's device."""
+    shards = local_operands("moe_gmm", (x, w, group_sizes), (None,) * 3,
+                            (None,) * 3)
+    if shards is not None:
+        (xl, wl, gl), mesh, pl = shards
+        y = gmm(xl, wl, gl, backend=backend)
+        return from_local(y, mesh, pl, (x.shape[0], w.shape[2]))
     if dispatch(backend, x) == "torch":
         return gmm_ref(x, w, group_sizes)
     refuse_grad("moe_gmm", "Sorted MoE dispatch in training", x, w)
     return _gmm_cuda(x, w, group_sizes)
+
+
+def cost(T: int, d: int, f: int, E: int, itemsize: int,
+         active: int | None = None) -> tuple:
+    """(FLOPs, bytes) of one K7 call: 2 T d f, the ``active`` experts'
+    weights (all E unless given) and the rows read, the output written."""
+    active = E if active is None else active
+    return 2 * T * d * f, itemsize * (active * d * f + T * d + T * f)
 
 
 def _gmm_cuda(x, w, group_sizes, regime: str | None = None):
@@ -72,8 +92,11 @@ def _gmm_cuda(x, w, group_sizes, regime: str | None = None):
     if group_sizes.shape != (E,) or group_sizes.dtype != torch.int32:
         raise ValueError(f"moe_gmm: group_sizes must be ({E},) int32, got "
                          f"{tuple(group_sizes.shape)} {group_sizes.dtype}")
-    check_operands("moe_gmm", x, w, group_sizes)   # TMA: 16-byte aligned
     y = torch.empty((T, f), dtype=x.dtype, device=x.device)
+    if is_fake(x):
+        report_cost("moe_gmm", *cost(T, d, f, E, x.element_size()))
+        return y
+    check_operands("moe_gmm", x, w, group_sizes)   # TMA: 16-byte aligned
     if y.numel() == 0:
         return y
     regime = plan(T, d, f, E) if regime is None else regime

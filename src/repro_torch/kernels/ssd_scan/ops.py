@@ -22,6 +22,12 @@ is XLA's autodiff of the chunked ``_ssd_xla`` (the Pallas kernel is
 forward only).  On the CPU, autograd differentiates
 :func:`ref.ssd_chunked` itself.  Nothing falls back: a kernel that fails
 to build or launch raises in training as in serving.
+
+A fake tensor takes the kernel's route without a launch (y and the final
+state of K8's shapes, :func:`cost` reported); ``DTensor`` operands run on
+their local shards where batch (or heads) are sharded
+(``common.local_operands``): with x sharded by heads, B and C (and A and
+D) held whole are sliced to the groups (and heads) the rank's heads read.
 """
 from __future__ import annotations
 
@@ -32,7 +38,9 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.common import (DTYPE_CODES, LaunchCounter,
-                                        cdiv, check_operands, dispatch)
+                                        batch_only, cdiv, check_operands,
+                                        dispatch, from_local, is_fake,
+                                        local_operands, report_cost)
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked
 
 LAUNCHES = LaunchCounter()  # wrapper calls that launched the kernels
@@ -79,6 +87,19 @@ def ssd(x, dt, A, B, C, D_skip, *, chunk: int = 256, initial_state=None,
     Bt, S, H, P = x.shape
     N = B.shape[3]
     chunk = min(chunk, max(16, 1 << (S - 1).bit_length()))   # don't over-chunk tiny S
+    given = () if initial_state is None else (initial_state,)
+    shards = local_operands("ssd_scan", (x, dt, A, B, C, D_skip) + given,
+                            (0, 0, None, 0, 0, None, 0),
+                            (2, 2, 0, 2, 2, 0, 1))
+    if shards is not None:
+        locs, mesh, pl = shards
+        y, final = ssd(*locs[:6], chunk=chunk, backend=backend,
+                       initial_state=locs[6] if given else None)
+        # x's (Bt, S, H, P) shards as the state's (Bt, H, P, N)
+        fpl = [type(p)({0: 0, 2: 1}[p.dim]) if hasattr(p, "dim") else p
+               for p in pl]
+        return (from_local(y, mesh, pl, x.shape),
+                from_local(final, mesh, fpl, (Bt, H, P, N)))
     if initial_state is None:
         initial_state = torch.zeros((Bt, H, P, N), dtype=torch.float32,
                                     device=x.device)
@@ -120,6 +141,29 @@ class SSDScanFn(torch.autograd.Function):
         return tuple(next(got) if w else None for w in want) + (None,)
 
 
+def flop_parts(Bt: int, S: int, H: int, P: int, G: int, N: int,
+               Q: int) -> tuple:
+    """The chunked SSD scan's products over the causal half (j <= i) of
+    each chunk: C·Bᵀ once per (batch, group, chunk); (C·Bᵀ ⊙ L)·(dt·x),
+    and the two state terms (C·stateᵀ and the state update), per (batch,
+    head, chunk).  Returns (C·Bᵀ, intra-chunk, state) FLOPs."""
+    nc = cdiv(S, Q)
+    pairs = Q * (Q + 1) // 2
+    return (Bt * G * nc * 2 * pairs * N, Bt * H * nc * 2 * pairs * P,
+            Bt * H * nc * 4 * Q * N * P)
+
+
+def cost(Bt: int, S: int, H: int, P: int, G: int, N: int, Q: int,
+         itemsize: int) -> tuple:
+    """(FLOPs, bytes) of one K8 call over chunks of Q: the products of
+    :func:`flop_parts`; x, B and C (``itemsize``) and dt (f32) read, A, D
+    and the initial state read, y and the f32 final state written."""
+    state = 4 * Bt * H * P * N
+    nbytes = (itemsize * (2 * Bt * S * H * P + 2 * Bt * S * G * N)
+              + 4 * Bt * S * H + 8 * H + 2 * state)
+    return sum(flop_parts(Bt, S, H, P, G, N, Q)), nbytes
+
+
 def _ssd_cuda(x, dt, A, B, C, D_skip, initial_state, chunk: int):
     if x.ndim != 4 or B.ndim != 4 or B.shape != C.shape:
         raise ValueError(f"ssd_scan: x {tuple(x.shape)}, B {tuple(B.shape)}, "
@@ -148,9 +192,13 @@ def _ssd_cuda(x, dt, A, B, C, D_skip, initial_state, chunk: int):
     if any(t.dtype != torch.float32 for t in f32):
         raise ValueError(f"ssd_scan: dt, A, D and initial_state must be "
                          f"float32, got {[t.dtype for t in f32]}")
-    check_operands("ssd_scan", x, dt, A, B, C, D_skip, initial_state)
     y = torch.empty_like(x)
     final = torch.empty((Bt, H, P, N), dtype=torch.float32, device=x.device)
+    if is_fake(x):
+        report_cost("ssd_scan", *cost(Bt, S, H, P, G, N, chunk,
+                                      x.element_size()))
+        return y, final
+    check_operands("ssd_scan", x, dt, A, B, C, D_skip, initial_state)
     if x.numel() == 0:
         final.copy_(initial_state)
         return y, final
@@ -175,7 +223,18 @@ def ssd_step(state, x_t, dt_t, A, B_t, C_t, D_skip):
 
     state: (Bt, H, P, N) f32; x_t: (Bt, H, P); dt_t: (Bt, H);
     B_t/C_t: (Bt, G, N).  Returns (y_t (Bt, H, P) in x_t's dtype,
-    new_state)."""
+    new_state).  ``DTensor`` operands run on their local rows, every shard
+    but the batch's gathered first (a state sharded on N would make y a
+    partial sum)."""
+    ops = [batch_only(t, 0 if t.ndim > 1 else None) for t in
+           (state, x_t, dt_t, A, B_t, C_t, D_skip)]
+    shards = local_operands("ssd_step", ops, (0, 0, 0, None, 0, 0, None),
+                            (None,) * 7)
+    if shards is not None:
+        (st, xl, dl, Al, Bl, Cl, Dl), mesh, pl = shards
+        y, new = ssd_step(st, xl, dl, Al, Bl, Cl, Dl)
+        return (from_local(y, mesh, pl, x_t.shape),
+                from_local(new, mesh, pl, state.shape))
     H = state.shape[1]
     rep = H // B_t.shape[1]
     xf, dtf = x_t.float(), dt_t.float()

@@ -59,21 +59,25 @@ def ssd_chunked(x, dt, A, B, C, D_skip, initial_state, chunk: int):
     pad = -S % Q
     xf = torch.nn.functional.pad(x.float(), (0, 0, 0, 0, 0, pad))
     dtf = torch.nn.functional.pad(dt.float(), (0, 0, 0, pad))
-    Bf = torch.nn.functional.pad(_f32_heads(B, rep), (0, 0, 0, 0, 0, pad))
-    Cf = torch.nn.functional.pad(_f32_heads(C, rep), (0, 0, 0, 0, 0, pad))
+    Bf = torch.nn.functional.pad(B.float(), (0, 0, 0, 0, 0, pad))
+    Cf = torch.nn.functional.pad(C.float(), (0, 0, 0, 0, 0, pad))
     Af = A.float()
     tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
     state = initial_state.float()
     ys = []
     for c0 in range(0, S + pad, Q):
         xc, dtc = xf[:, c0:c0 + Q], dtf[:, c0:c0 + Q]          # (Bt,Q,H,P) (Bt,Q,H)
-        Bc, Cc = Bf[:, c0:c0 + Q], Cf[:, c0:c0 + Q]            # (Bt,Q,H,N)
+        Bg, Cg = Bf[:, c0:c0 + Q], Cf[:, c0:c0 + Q]            # (Bt,Q,G,N)
+        Bc = Bg.repeat_interleave(rep, dim=2)                  # (Bt,Q,H,N)
+        Cc = Cg.repeat_interleave(rep, dim=2)
         cs = torch.cumsum(dtc * Af, dim=1)                     # inclusive
         seg = cs[:, :, None, :] - cs[:, None, :, :]            # (Bt,Q,Q,H)
         # mask BEFORE exp: upper-triangular seg is positive and would overflow
         L = torch.exp(torch.where(tri[None, :, :, None], seg,
                                   torch.full_like(seg, float("-inf"))))
-        scores = torch.einsum("bihn,bjhn->bijh", Cc, Bc) * L
+        # C·Bᵀ once per group, as the reference's path and the kernel take it
+        CB = torch.einsum("bign,bjgn->bijg", Cg, Bg)          # (Bt,Q,Q,G)
+        scores = CB.repeat_interleave(rep, dim=3) * L
         dtx = xc * dtc[..., None]                              # (Bt,Q,H,P)
         y = torch.einsum("bijh,bjhp->bihp", scores, dtx)
         y = y + torch.exp(cs)[..., None] * torch.einsum("bihn,bhpn->bihp",

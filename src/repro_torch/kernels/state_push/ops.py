@@ -19,6 +19,8 @@ Where each operand goes:
   entry points run the plain version on the CPU.
 
 ``backend="torch"`` forces the plain version (tests and ``chip_smoke.py``).
+A fake tensor takes a kernel's route without a launch: outputs of its
+shapes and :func:`cost` reported.
 """
 from __future__ import annotations
 
@@ -30,7 +32,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.common import (LaunchCounter, cdiv, check_operands,
-                                        dispatch)
+                                        dispatch, is_fake, report_cost)
 from repro_torch.kernels.state_push import hostcodec
 from repro_torch.kernels.state_push import ref as _ref
 
@@ -103,13 +105,31 @@ def _host_codec(x, backend, device) -> bool:
 
 # -- the kernels, on (R, 128) f32 rows ------------------------------------------
 
+def cost(kernel: str, R: int) -> tuple:
+    """(FLOPs, bytes) of one call of ``kernel`` (``quantize_delta``,
+    ``quantize_fp8``, ``apply_delta`` or ``push``) on R rows of 128 f32:
+    each input read and each output written once (the quantisers read the
+    value and the base and write the codes, the residual and a scale a
+    row; the apply reads the global value, the codes and the scales; the
+    push reads three rows and writes one)."""
+    n = R * LANES
+    if kernel in ("quantize_delta", "quantize_fp8"):
+        return 9 * n, n * (4 + 4 + 1 + 4) + R * 4
+    if kernel == "apply_delta":
+        return 2 * n, n * (4 + 1 + 4) + R * 4
+    if kernel == "push":
+        return 2 * n, n * 16
+    raise ValueError(f"no state-push kernel {kernel!r}")
+
+
 def _check_rows(what: str, *xs: torch.Tensor) -> None:
     shape = xs[0].shape
     for x in xs:
         if x.dim() != 2 or x.shape[1] != LANES or x.shape != shape:
             raise ValueError(f"{what}: rows must be (R, {LANES}) alike, got "
                              f"{[tuple(t.shape) for t in xs]}")
-    check_operands(what, *xs)
+    if not is_fake(xs[0]):          # a fake tensor has no address
+        check_operands(what, *xs)
 
 
 def quantize_rows(lr: torch.Tensor, br: torch.Tensor | None = None, *,
@@ -137,6 +157,9 @@ def _quantize_cuda(lr, br, qmax, fp8, with_residual):
                     dtype=torch.float8_e4m3fn if fp8 else torch.int8)
     s = torch.empty((R, 1), dtype=torch.float32, device=lr.device)
     resid = torch.empty_like(lr) if with_residual else None
+    if is_fake(lr):
+        report_cost(f"state_push.{what}", *cost(what, R))
+        return q, s, resid
     fn = _build.function("state_push", "state_push_quantize", _QUANT_ARGS)
     rc = fn(lr.data_ptr(), None if br is None else br.data_ptr(), q.data_ptr(),
             s.data_ptr(), None if resid is None else resid.data_ptr(), R,
@@ -165,8 +188,12 @@ def _apply_cuda(gr, q, scales):
         raise ValueError(f"apply_delta: rows {tuple(gr.shape)}, codes "
                          f"{tuple(q.shape)}, scales {tuple(scales.shape)}")
     _check_rows("apply_delta", gr)
-    check_operands("apply_delta", gr, q, scales)
     out = torch.empty_like(gr)
+    if is_fake(gr):
+        report_cost("state_push.apply_delta", *cost("apply_delta",
+                                                    gr.shape[0]))
+        return out
+    check_operands("apply_delta", gr, q, scales)
     fn = _build.function("state_push", "state_push_apply", _APPLY_ARGS)
     rc = fn(gr.data_ptr(), q.data_ptr(), scales.data_ptr(), out.data_ptr(),
             gr.shape[0], int(q.dtype == torch.float8_e4m3fn),
@@ -189,6 +216,9 @@ def _push_cuda(lr, br, gr):
         raise ValueError("push: rows must be float32")
     _check_rows("push", lr, br, gr)
     out = torch.empty_like(gr)
+    if is_fake(lr):
+        report_cost("state_push.push", *cost("push", lr.shape[0]))
+        return out
     fn = _build.function("state_push", "state_push_push", _PUSH_ARGS)
     rc = fn(lr.data_ptr(), br.data_ptr(), gr.data_ptr(), out.data_ptr(),
             lr.shape[0], torch.cuda.current_stream(lr.device).cuda_stream)

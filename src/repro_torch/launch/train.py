@@ -5,20 +5,28 @@ schedule and optimizers, its checkpoints (the reference's layout: either
 package resumes the other's) and its output lines.  Everything runs on
 the CUDA card (``--device cuda``, the default) and raises when there is
 none; the CPU runs only when asked for (``--device cpu``).  ``--smoke``
-trains the reduced config of the architecture on ``smoke_shape``; without
-it the full config trains at ``--shape`` on one device, the batch split
-into microbatches of ``MICROBATCH_ROWS`` rows (``ExecConfig.microbatches``),
-since the reference's production mesh has no counterpart yet:
-``--multi-pod`` raises (ROADMAP item 8, "Multi-device and dry-run").  Every
-family trains, the encoder/decoder and VLM batches carrying the frames or
-patch embeddings ``make_batch`` draws, as device tensors beside the
-tokens.  Each step ends in a sync of the card, and its time goes to the
-``faasm_train_step_ms`` histogram and a ``train.step`` span.  The full
-width on one card at a cut batch is ``examples/train_lm_torch.py``.
+trains the reduced config of the architecture on ``smoke_shape`` on one
+device.  Without it the full config trains at ``--shape``:
+
+  * launched with a process group of 256 ranks (512 with
+    ``--multi-pod``), as the reference's production run, on the
+    production mesh (``launch/mesh.py``): parameters, optimizer state and
+    batch placed by ``ShardingRules`` (``launch/steps.py``), one
+    microbatch, as there;
+  * with no process group, on one device, the batch split into
+    microbatches of ``MICROBATCH_ROWS`` rows (``ExecConfig.microbatches``).
+
+``--multi-pod`` in a world of another size raises and names the size it
+needs.  Every family trains, the encoder/decoder and VLM batches carrying
+the frames or patch embeddings ``make_batch`` draws, as device tensors
+beside the tokens.  Each step ends in a sync of the card, and its time
+goes to the ``faasm_train_step_ms`` histogram and a ``train.step`` span.
+The full width on one card at a cut batch is ``examples/train_lm_torch.py``.
 """
 from __future__ import annotations
 
 import argparse
+import math
 from typing import List, Optional
 
 import torch
@@ -27,7 +35,9 @@ from repro_torch.checkpoint import Checkpointer
 from repro_torch.configs import get_config, get_shape, smoke_config, smoke_shape
 from repro_torch.data import PipelineConfig, make_batch
 from repro_torch.kernels.common import resolve_device
-from repro_torch.launch.steps import make_train_step
+from repro_torch.distributed.sharding import ShardingRules
+from repro_torch.launch.mesh import make_production_mesh, production_shape
+from repro_torch.launch.steps import make_train_step, place_params
 from repro_torch.models import ExecConfig, build_model
 from repro_torch.models.weights import trainable
 from repro_torch.optim import SGD, AdamW, warmup_cosine
@@ -56,6 +66,12 @@ def parser() -> argparse.ArgumentParser:
     return ap
 
 
+def world_size() -> int:
+    """Ranks in the default process group; 1 without one."""
+    import torch.distributed as dist
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
 def to_device(batch, device) -> dict:
     """A numpy batch of ``make_batch`` as tensors on ``device``: the tokens,
     targets and mask, and the frames or patch embeddings (f32, cast by the
@@ -67,12 +83,12 @@ def main(argv: Optional[List[str]] = None) -> dict:
     """Trains; returns the losses of the steps it ran and the last step's
     parameters and optimizer state."""
     args = parser().parse_args(argv)
-    if args.multi_pod:
-        raise NotImplementedError(
-            "--multi-pod: the production mesh is not ported yet (ROADMAP "
-            "item 8, 'Multi-device and dry-run'); the port trains on one "
-            "device")
+    world, need = world_size(), math.prod(production_shape(args.multi_pod)[0])
+    if args.multi_pod and world != need:
+        raise ValueError(f"--multi-pod: the 2x16x16 mesh needs a process "
+                         f"group of {need} ranks; this run has {world}")
     device = resolve_device(args.device)
+    rules = None
     if args.smoke:
         cfg = smoke_config(args.arch)
         shape = smoke_shape("train")
@@ -80,8 +96,13 @@ def main(argv: Optional[List[str]] = None) -> dict:
     else:
         cfg = get_config(args.arch)
         shape = get_shape(args.shape)
-        ec = ExecConfig(loss_chunk=512, microbatches=max(
-            1, shape.global_batch // MICROBATCH_ROWS))
+        if world == need:          # the production mesh, as the reference
+            rules = ShardingRules(make_production_mesh(
+                multi_pod=args.multi_pod, device_type=device.type), cfg)
+            ec = ExecConfig(loss_chunk=512)
+        else:
+            ec = ExecConfig(loss_chunk=512, microbatches=max(
+                1, shape.global_batch // MICROBATCH_ROWS))
 
     model = build_model(cfg, ec)
     sched = warmup_cosine(args.lr, warmup=max(1, args.steps // 10),
@@ -92,7 +113,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
     print(f"train {cfg.name}: {cfg.param_count() / 1e6:.1f}M params, "
           f"{shape.name}, opt={args.optimizer}")
 
-    step_fn = make_train_step(model, opt, shape)
+    step_fn = make_train_step(model, opt, shape, rules)
     params = trainable(model.init(
         torch.Generator(device=device).manual_seed(0), device))
     state = opt.init(params)
@@ -100,6 +121,10 @@ def main(argv: Optional[List[str]] = None) -> dict:
     if args.resume and ck.latest_step() is not None:
         (params, state), start, _ = ck.restore((params, state))
         print(f"resumed at step {start}")
+    if rules is not None:          # each rank keeps its shards
+        params = place_params(params, rules)
+        state = type(state)(*(place_params(f, rules) if isinstance(
+            f, torch.nn.Module) else f for f in state))
 
     pc = PipelineConfig(seed=0)
     # step timing flows through the telemetry registry; the printed log

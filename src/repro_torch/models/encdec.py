@@ -29,7 +29,7 @@ from repro_torch.models import layers as L
 from repro_torch.models.attention import (Attention, attn_apply_decode,
                                           attn_apply_full, attn_apply_prefill,
                                           cross_attn_apply, cross_attn_init,
-                                          cross_attn_precompute)
+                                          cross_attn_precompute, split_heads)
 from repro_torch.models.execution import ExecConfig
 from repro_torch.models.transformer import DenseBlock, _maybe_remat
 
@@ -96,7 +96,7 @@ def encode(params: EncDec, cfg: ModelConfig, ec: ExecConfig, frames,
                                    h.device).to(h.dtype)
     block = _maybe_remat(_enc_block, ec) if train else _enc_block
     for lp in params.encoder.layers:
-        h = block(lp, cfg, ec, h)
+        h = block(lp, cfg, ec, L.same_layout_grad(h))
     return L.norm_apply(params.encoder.ln_post, cfg, h)
 
 
@@ -112,14 +112,14 @@ def _dec_block_full(lp: DecBlock, cfg, ec, h, enc_out):
 def forward_hidden(params: EncDec, cfg: ModelConfig, ec: ExecConfig, tokens,
                    frames=None, train: bool = True):
     """Returns (h (B, S, d) post-final-norm, aux_loss 0)."""
-    enc_out = encode(params, cfg, ec, frames, train=train)
+    enc_out = L.same_layout_grad(encode(params, cfg, ec, frames, train=train))
     h = L.embed_apply(params, cfg, tokens)
     h = h + L.sinusoidal_positions(h.shape[1], cfg.d_model,
                                    h.device).to(h.dtype)
     block = _maybe_remat(_dec_block_full, ec) if train else _dec_block_full
     for lp in params.layers:
-        h = block(lp, cfg, ec, h, enc_out)
-    return (L.norm_apply(params.final_norm, cfg, h),
+        h = block(lp, cfg, ec, L.same_layout_grad(h), enc_out)
+    return (L.norm_apply(params.final_norm, cfg, L.same_layout_grad(h)),
             torch.zeros((), dtype=torch.float32, device=h.device))
 
 
@@ -186,10 +186,10 @@ def cross_attn_decode(p: Attention, cfg: ModelConfig, ec: ExecConfig, x, ck,
     q = x @ p.wq
     if cfg.qkv_bias:
         q = q + p.bq
-    q = q.reshape(B, cfg.n_heads, cfg.head_dim)
+    q = split_heads(q, B, cfg.n_heads, cfg.head_dim)
     y = decode_attention(q, ck.to(q.dtype), cv.to(q.dtype), lengths,
                          backend=ec.backend)
-    y = y.reshape(B, 1, cfg.q_dim) @ p.wo
+    y = L.reduced(y.reshape(B, 1, cfg.q_dim) @ p.wo)
     if cfg.o_bias:
         y = y + p.bo
     return y

@@ -8,10 +8,11 @@ is a TPU detail the port drops: the CUDA flash kernel already stops each
 query tile at its causal limit, so bucketing would only add launches and
 copies.  Logits are always f32 (``logits_f32`` is never turned off in the
 JAX package).  ``scan_layers`` has no counterpart: the port walks its
-layers with a Python loop, never a scan.  ``shard_activations`` places
-the residual stream across a mesh's devices, and the port runs on one
-device (ROADMAP "Multi-device and dry-run").  The TPU-tile knob
-``attn_block_k`` has no counterpart either: the CUDA kernel picks its own
+layers with a Python loop, never a scan.  ``shard_activations``
+constrains GSPMD's layout of the residual stream; on a mesh the port lays
+it out itself (``layers.reduced`` and ``same_layout_grad``: sharded on the
+batch, replicated over ``model``).  The TPU-tile knob ``attn_block_k``
+has no counterpart either: the CUDA kernel picks its own
 tiles, and the flash backward takes the reference's default tile of 512
 keys (``kernels/flash_attention/ops.py``).
 """

@@ -9,11 +9,12 @@ the Whisper-style encoder/decoder.  Methods take the parameters (the
 :class:`~repro_torch.models.encdec.EncDec`) and inputs, as the JAX methods
 take a parameter tree.  The VLM's patch embeddings and the encoder's
 frames come in as ``extra`` (``logits``, ``prefill``) or in the batch
-(``loss``: ``image_embeds``, ``frames``), as there.  The dry-run input
-specs come with ROADMAP "Multi-device and dry-run".  Parameters and
+(``loss``: ``image_embeds``, ``frames``), as there.  Parameters and
 caches are built on the card unless the caller names the CPU: a missing
 card raises rather than handing back CPU tensors that would run the
-plain versions.
+plain versions.  The dry-run's stand-ins (``init_shapes``,
+``cache_specs``, ``input_specs``) are tensors on the meta device: the
+reference's shapes and dtypes, no storage.
 """
 from __future__ import annotations
 
@@ -22,7 +23,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.kernels.common import resolve_device
 from repro_torch.models import encdec, ssm_stack, transformer
 from repro_torch.models.execution import DEFAULT_EXEC, ExecConfig
@@ -49,6 +50,11 @@ class Model:
         """Random parameters from ``rng``, a generator on ``device`` (the
         card unless ``"cpu"`` is named; raises without a card)."""
         return self._mod.init_params(rng, self.cfg, resolve_device(device))
+
+    def init_shapes(self):
+        """The family's parameter module on the meta device: every leaf's
+        shape and dtype, no storage (for the dry-run)."""
+        return self._mod.Params(self.cfg, device="meta")
 
     # -- training ----------------------------------------------------------------
     def loss(self, params, batch):
@@ -101,6 +107,35 @@ class Model:
         """One serve step: (logits (B,V), cache)."""
         return self._mod.decode_step(params, self.cfg, self.ec, token, cache,
                                      index)
+
+    # -- dry-run input specs --------------------------------------------------------
+    def cache_specs(self, batch: int, max_len: int) -> dict:
+        """The serving cache of :meth:`init_cache` on the meta device."""
+        return self._mod.init_cache(self.cfg, batch, max_len,
+                                    torch.device("meta"))
+
+    def input_specs(self, shape: ShapeConfig) -> dict:
+        """Meta-device stand-ins for every input of the step this shape
+        runs (the train step for "train", prefill or one decode step for
+        the others), with the reference's shapes and dtypes."""
+        cfg = self.cfg
+        GB, S = shape.global_batch, shape.seq_len
+        meta = lambda s, d: torch.empty(s, dtype=d, device="meta")
+        i32, f = torch.int32, getattr(torch, cfg.dtype)
+        St = S - cfg.n_image_tokens if cfg.family == "vlm" else S
+        extra = {}
+        if cfg.family in _EXTRA:
+            extra[_EXTRA[cfg.family][0]] = meta(self.extra_shape(GB), f)
+        if shape.kind == "train":
+            return {"tokens": meta((GB, St), i32),
+                    "targets": meta((GB, St), i32),
+                    "mask": meta((GB, St), torch.float32), **extra}
+        if shape.kind == "prefill":
+            return {"tokens": meta((GB, St), i32), **extra,
+                    "cache": self.cache_specs(GB, S)}
+        # decode: one new token against a cache of seq_len
+        return {"token": meta((GB,), i32), "index": meta((GB,), i32),
+                "cache": self.cache_specs(GB, S)}
 
 
 def build_model(cfg: ModelConfig, ec: Optional[ExecConfig] = None) -> Model:

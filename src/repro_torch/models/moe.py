@@ -33,6 +33,7 @@ Where PyTorch differs from JAX:
 """
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import torch
@@ -40,9 +41,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.common import as_dtensor, from_local
 from repro_torch.kernels.moe_gmm import gmm
 from repro_torch.models.execution import ExecConfig
-from repro_torch.models.layers import empty_param
+from repro_torch.models.layers import empty_param, reduced, same_layout_grad
 
 
 class SharedExperts(nn.Module):
@@ -87,24 +89,36 @@ def router_topk(p: MoE, cfg: ModelConfig,
     # Switch-style load-balance auxiliary loss.
     E = cfg.n_experts
     me = probs.mean(dim=0)                                         # (E,)
-    ce = torch.zeros(E, dtype=torch.float32, device=x2d.device).index_add_(
-        0, idx.reshape(-1),
-        torch.full((idx.numel(),), 1.0 / idx.numel(), device=x2d.device))
+    if as_dtensor(idx) is None:
+        ce = torch.zeros(E, dtype=torch.float32, device=x2d.device).index_add_(
+            0, idx.reshape(-1),
+            torch.full((idx.numel(),), 1.0 / idx.numel(), device=x2d.device))
+    else:                  # tokens sharded on a mesh: no in-place scatter
+        ce = _one_hot(idx.reshape(-1), E).mean(dim=0)
     aux = cfg.router_aux_coef * E * torch.sum(me * ce)
     return gates, idx.to(torch.int32), aux
 
 
-def _expert_ffn_dense(p: MoE, x_ecd):
-    """x: (..., E, C, d) -> gated FFN with per-expert weights."""
-    h = F.silu(torch.einsum("gecd,edf->gecf", x_ecd, p.w_gate)) * \
-        torch.einsum("gecd,edf->gecf", x_ecd, p.w_up)
-    return torch.einsum("gecf,efd->gecd", h, p.w_down)
+def _one_hot(x, n: int):
+    """``F.one_hot(x, n).float()`` by comparison with ``arange(n)``: the
+    same 0/1 rows, with no data-dependent check of x's range (which a fake
+    tensor cannot answer)."""
+    return (x[..., None] == torch.arange(n, device=x.device)).float()
+
+
+def _expert_ffn_dense(w, x_ecd):
+    """x: (..., E, C, d) -> gated FFN with per-expert weights ``w`` =
+    (w_gate, w_up, w_down)."""
+    w_gate, w_up, w_down = w
+    h = F.silu(torch.einsum("gecd,edf->gecf", x_ecd, w_gate)) * \
+        torch.einsum("gecd,edf->gecf", x_ecd, w_up)
+    return torch.einsum("gecf,efd->gecd", h, w_down)
 
 
 def shared_expert_apply(p: MoE, x):
     s = p.shared
     h = F.silu(x @ s.w_gate) * (x @ s.w_up)
-    return h @ s.w_down
+    return reduced(h @ s.w_down)
 
 
 def moe_apply(p: MoE, cfg: ModelConfig, ec: ExecConfig,
@@ -114,11 +128,18 @@ def moe_apply(p: MoE, cfg: ModelConfig, ec: ExecConfig,
     Decode steps (S == 1) take ``ec.moe_decode_impl``, the dropless sorted
     path by default: a serving token must never be capacity-dropped."""
     B, S, d = x.shape
-    x2d = x.reshape(B * S, d)
+    x2d = same_layout_grad(x.reshape(B * S, d))
     gates, idx, aux = router_topk(p, cfg, x2d)
     impl = ec.moe_decode_impl if S == 1 else ec.moe_impl
+    sharded = as_dtensor(x2d) is not None
+    if impl == "sorted" and sharded:
+        raise NotImplementedError(
+            "moe: the sorted dispatch on a mesh would need an all-to-all of "
+            "the tokens; take moe_decode_impl='einsum' (as the dry-run does)")
     if impl == "sorted":
         y2d = _moe_sorted(p, cfg, x2d, gates, idx, backend=ec.backend)
+    elif sharded:
+        y2d = _moe_einsum_sharded(p, cfg, ec, x2d, gates, idx)
     else:
         y2d = _moe_einsum(p, cfg, ec, x2d, gates, idx)
     if cfg.n_shared_experts:
@@ -126,10 +147,45 @@ def moe_apply(p: MoE, cfg: ModelConfig, ec: ExecConfig,
     return y2d.reshape(B, S, d), aux
 
 
-def _moe_einsum(p: MoE, cfg: ModelConfig, ec: ExecConfig, x2d, gates, idx):
+def _moe_einsum_sharded(p: MoE, cfg: ModelConfig, ec: ExecConfig, x2d,
+                        gates, idx):
+    """The einsum dispatch on a mesh (``DTensor`` tokens, sharded on their
+    batch axes): each rank dispatches its own tokens in groups of its own
+    and runs the experts it holds (the ``model`` axis shards them: expert
+    parallelism, the tokens being replicated there), so its combine is a
+    partial sum over that axis, reduced as a row-parallel product's is."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = x2d.device_mesh
+    ws = [w.redistribute(mesh, w.placements) for w in
+          (p.w_gate, p.w_up, p.w_down)]
+    ep = [m for m, pl in enumerate(ws[0].placements)
+          if isinstance(pl, Shard) and pl.dim == 0]
+    for t in (x2d, gates, idx):
+        if any(not isinstance(pl, (Replicate, Shard))
+               or isinstance(pl, Shard) and pl.dim != 0
+               for pl in t.placements):
+            raise ValueError(f"moe: tokens placed {t.placements}; the "
+                             f"dispatch takes them sharded on dim 0")
+    part = [Partial() if m in ep else pl
+            for m, pl in enumerate(x2d.placements)]
+    x_l = same_layout_grad(x2d).to_local(grad_placements=part)
+    g_l = same_layout_grad(gates).to_local(grad_placements=part)
+    coord = mesh.get_coordinate()
+    E_l = ws[0].to_local().shape[0]
+    lo = sum(coord[m] * E_l * math.prod(mesh.size(n) for n in ep if n > m)
+             for m in ep)
+    y_l = _moe_einsum(p, cfg, ec, x_l, g_l, idx.to_local(),
+                      experts=(lo, lo + E_l, [w.to_local() for w in ws]))
+    return reduced(from_local(y_l, mesh, part, tuple(x2d.shape)))
+
+
+def _moe_einsum(p: MoE, cfg: ModelConfig, ec: ExecConfig, x2d, gates, idx,
+                experts=None):
     """GShard grouped capacity dispatch (one-hot einsums).  The (Gg, k*Sg,
     E, C) f32 dispatch tensors are 377 MB each at the full-width prefill
-    (T 2048, C 120); each is freed as soon as its fold is taken."""
+    (T 2048, C 120); each is freed as soon as its fold is taken.
+    ``experts`` = (lo, hi, weights) runs experts lo..hi-1 alone, with
+    those weights (a rank's expert shard): their share of the output."""
     T, d = x2d.shape
     E, k = cfg.n_experts, cfg.experts_per_token
     Sg = min(ec.moe_group_size, T)
@@ -142,7 +198,7 @@ def _moe_einsum(p: MoE, cfg: ModelConfig, ec: ExecConfig, x2d, gates, idx):
     cf = ec.moe_capacity_override or cfg.capacity_factor
     C = max(1, int(k * Sg * cf / E))
 
-    oh = F.one_hot(idx.reshape(Gg, Sg, k).long(), E).float()
+    oh = _one_hot(idx.reshape(Gg, Sg, k), E)
     # slot-major priority: all slot-0 choices first, then slot-1, ...
     ohf = oh.permute(0, 2, 1, 3).reshape(Gg, k * Sg, E)
     del oh
@@ -152,7 +208,7 @@ def _moe_einsum(p: MoE, cfg: ModelConfig, ec: ExecConfig, x2d, gates, idx):
     keep = (pos < C).float()
     # a position past C has no one-hot row in the reference; ``keep``
     # zeroes it here
-    pos_oh = F.one_hot(pos.long().clamp_(max=C - 1), C).float()
+    pos_oh = _one_hot(pos.long().clamp(max=C - 1), C)
     disp_f = ohf[..., None] * pos_oh[:, :, None, :] * keep[..., None, None]
     del ohf, pos_oh
     # fold the k slots back onto tokens: (Gg, k, Sg, E, C) -> sum over k
@@ -162,11 +218,15 @@ def _moe_einsum(p: MoE, cfg: ModelConfig, ec: ExecConfig, x2d, gates, idx):
     comb = disp_f.reshape(Gg, k, Sg, E, C).sum(dim=1)         # (Gg,Sg,E,C)
     del disp_f
 
+    w = (p.w_gate, p.w_up, p.w_down)
+    if experts is not None:
+        lo, hi, w = experts
+        disp, comb = disp[:, :, lo:hi], comb[:, :, lo:hi]
     xg = x2d.reshape(Gg, Sg, d)
     cdt = xg.dtype
     expert_in = torch.einsum("gsec,gsd->gecd", disp.to(cdt), xg)
     del disp
-    expert_out = _expert_ffn_dense(p, expert_in)
+    expert_out = _expert_ffn_dense(w, expert_in)
     y = torch.einsum("gsec,gecd->gsd", comb.to(cdt), expert_out)
     return y.reshape(T_pad, d)[:T]
 

@@ -6,7 +6,10 @@ and dtype rules.  The full-sequence apply dispatches to
 version on the CPU); the decode step is a plain O(H·P·N) state update.
 As in the reference, the prefill convolves in the activation dtype and
 the decode step in f32 (rounded afterwards); dt and the gated norm are
-f32.
+f32.  On a mesh whose ``model`` axis the batch leaves idle, the
+full-sequence apply splits the layer's heads over that axis (the
+in-projection's columns, the conv's channels, K8's heads, the
+out-projection's rows), as GSPMD splits the reference's layer there.
 """
 from __future__ import annotations
 
@@ -15,9 +18,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.common import (as_dtensor, batch_only, from_local,
+                                        local_operands)
 from repro_torch.kernels.ssd_scan import ssd, ssd_step
 from repro_torch.models.execution import ExecConfig
-from repro_torch.models.layers import dt, empty_param
+from repro_torch.models.layers import dt, empty_param, reduced
 
 
 def _dims(cfg: ModelConfig):
@@ -73,21 +78,35 @@ def _split_conv(cfg: ModelConfig, conv_out):
 def _gated_norm(p: Mamba2, cfg: ModelConfig, y, z):
     g = y * F.silu(z)
     gf = g.float()
-    ms = (gf * gf).mean(-1, keepdim=True)
+    # with the heads split on a mesh the mean is a partial sum: made
+    # whole here, not left for DTensor to scatter along the sequence
+    ms = reduced((gf * gf).mean(-1, keepdim=True))
     out = gf * torch.rsqrt(ms + cfg.norm_eps) * p.norm_scale.float()
     return out.to(y.dtype)
 
 
-def _causal_conv_full(p: Mamba2, x):
+def _causal_conv_full(conv_w, conv_b, x):
     """Depthwise causal conv.  x: (B, S, C) -> (B, S, C), in x's dtype.
     Both frameworks cross-correlate: a left pad of W-1 and the taps in
-    order, no flip."""
-    W = p.conv_w.shape[0]
+    order, no flip.  On a mesh each rank convolves its own rows and, where
+    ``x``'s channels are split, its own channels (a channel reads only
+    itself), with the taps of those channels."""
+    shards = local_operands("causal_conv", (batch_only(x, 0, 2), conv_w,
+                                            conv_b), (0, None, None),
+                            (2, 1, 0))
+    if shards is not None:
+        (xl, wl, bl), mesh, pl = shards
+        return from_local(_conv(xl, wl, bl), mesh, pl, x.shape)
+    return _conv(x, conv_w, conv_b)
+
+
+def _conv(x, conv_w, conv_b):
+    W = conv_w.shape[0]
     C = x.shape[-1]
-    weight = p.conv_w.to(x.dtype).T[:, None, :]                 # (C, 1, W)
+    weight = conv_w.to(x.dtype).T[:, None, :]                   # (C, 1, W)
     xt = F.pad(x.transpose(1, 2), (W - 1, 0))                   # (B, C, W-1+S)
     y = F.conv1d(xt, weight, groups=C).transpose(1, 2)
-    return y + p.conv_b.to(x.dtype)
+    return y + conv_b.to(x.dtype)
 
 
 def mamba_apply_full(p: Mamba2, cfg: ModelConfig, ec: ExecConfig, x, *,
@@ -95,10 +114,23 @@ def mamba_apply_full(p: Mamba2, cfg: ModelConfig, ec: ExecConfig, x, *,
     """x: (B, S, d).  Returns y or (y, (conv_state, ssm_state))."""
     B, S, d = x.shape
     d_in, G, N, H, P, conv_ch, proj = _dims(cfg)
-    zxbcdt = x @ p.w_in
-    z, conv_in, dt_raw = _split_proj(cfg, zxbcdt)
-    conv_out = F.silu(_causal_conv_full(p, conv_in))
-    xc, Bc, Cc = _split_conv(cfg, conv_out)
+    m = _heads_dim(x, H, 2 * G * N)
+    if m is None:
+        zxbcdt = x @ p.w_in
+        z, conv_in, dt_raw = _split_proj(cfg, zxbcdt)
+        conv_parts = (conv_in,)
+        conv_out = F.silu(_causal_conv_full(p.conv_w, p.conv_b, conv_in))
+        xc, Bc, Cc = _split_conv(cfg, conv_out)
+        w_out = p.w_out
+    else:
+        z, xs, bc, dt_raw = _project_by_heads(p, cfg, x, m)
+        conv_parts = (xs, bc)
+        xc = F.silu(_causal_conv_full(p.conv_w[:, :d_in], p.conv_b[:d_in],
+                                      xs))
+        bcc = F.silu(_causal_conv_full(p.conv_w[:, d_in:], p.conv_b[d_in:],
+                                       bc))
+        Bc, Cc = bcc[..., :G * N], bcc[..., G * N:]
+        w_out = _split(p.w_out, m, 0)
 
     # slices of the conv output: the kernel reads whole contiguous rows
     x_h = xc.reshape(B, S, H, P).contiguous()
@@ -110,13 +142,61 @@ def mamba_apply_full(p: Mamba2, cfg: ModelConfig, ec: ExecConfig, x, *,
     y, final_state = ssd(x_h, dts, A, Bg, Cg, p.D, chunk=cfg.ssm_chunk,
                          initial_state=initial_state, backend=ec.backend)
     y = y.reshape(B, S, d_in)
-    out = _gated_norm(p, cfg, y, z) @ p.w_out
+    out = reduced(_gated_norm(p, cfg, y, z) @ w_out)
     if return_state:
         W = cfg.ssm_conv
-        tail = conv_in[:, -(W - 1):, :] if S >= W - 1 else F.pad(
-            conv_in, (0, 0, W - 1 - S, 0))
+        tails = [t[:, -(W - 1):, :] if S >= W - 1 else F.pad(
+            t, (0, 0, W - 1 - S, 0)) for t in conv_parts]
+        tail = tails[0] if len(tails) == 1 else torch.cat(tails, dim=-1)
         return out, (tail.to(dt(cfg.dtype)), final_state)
     return out
+
+
+def _heads_dim(x, H: int, bc_cols: int):
+    """The mesh dim a Mamba layer splits its heads over, as GSPMD splits
+    the layer's work there: the ``model`` axis where ``x`` (a ``DTensor``)
+    is replicated on it (the wide batch could not take it) and it divides
+    the heads and B's and C's ``bc_cols`` columns.  None for a plain
+    tensor, a 1-rank axis or a batch that already uses it."""
+    d = as_dtensor(x)
+    if d is None:
+        return None
+    from torch.distributed.tensor import Replicate
+    mesh = d.device_mesh
+    names = mesh.mesh_dim_names or ()
+    if "model" not in names:
+        return None
+    m = names.index("model")
+    n = mesh.size(m)
+    if (n == 1 or H % n or bc_cols % n
+            or not isinstance(d.placements[m], Replicate)):
+        return None
+    return m
+
+
+def _split(w, m: int, dim: int):
+    """``w`` (a ``DTensor``) sharded on ``dim`` over mesh dim ``m``."""
+    from torch.distributed.tensor import Shard
+    pl = list(w.placements)
+    pl[m] = Shard(dim)
+    return w.redistribute(w.device_mesh, pl)
+
+
+def _project_by_heads(p: Mamba2, cfg: ModelConfig, x, m: int):
+    """The in-projection with its columns split over mesh dim ``m``: z, x
+    and dt each by heads (the rank's heads' columns), B and C split the
+    same way and gathered (every head reads its group's whole B and C).
+    Returns (z, x, B|C, dt), z, x and dt sharded on their last dim."""
+    d_in, G, N, H, P, conv_ch, proj = _dims(cfg)
+    w = p.w_in
+
+    def cols(lo, hi):
+        return x @ _split(w[:, lo:hi], m, 1)
+
+    lo = 2 * d_in                              # [z, x, B, C, dt]
+    bc = cols(lo, lo + 2 * G * N)
+    bc = bc.redistribute(bc.device_mesh, x.placements)
+    return cols(0, d_in), cols(d_in, lo), bc, cols(lo + 2 * G * N, proj)
 
 
 def mamba_init_state(cfg: ModelConfig, batch: int, device=None):

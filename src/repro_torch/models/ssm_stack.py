@@ -122,10 +122,10 @@ def forward_hidden(params: SSMStack, cfg: ModelConfig, ec: ExecConfig,
         mamba, attn = _maybe_remat(mamba, ec), _maybe_remat(attn, ec)
     for (a, b) in _groups(cfg):
         if shared is not None:
-            h = attn(h)
+            h = attn(L.same_layout_grad(h))
         for lp in params.layers[a:b]:
-            h = mamba(lp, h)
-    return (L.norm_apply(params.final_norm, cfg, h),
+            h = mamba(lp, L.same_layout_grad(h))
+    return (L.norm_apply(params.final_norm, cfg, L.same_layout_grad(h)),
             torch.zeros((), dtype=torch.float32, device=h.device))
 
 

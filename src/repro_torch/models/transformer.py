@@ -14,7 +14,9 @@ in ``first_layers`` (unstacked in the reference too) with their own
 the reference's scan body: ``torch.utils.checkpoint`` for ``"full"``, a
 selective checkpoint that keeps the weight matmuls' outputs for
 ``"dots"``; serving's forward never rematerialises.
-``seq_shard_constraint`` is dropped (a no-op on one device).
+``seq_shard_constraint`` is dropped (a no-op on one device).  On a mesh
+each block's input gets its gradient back in its own layout
+(``layers.same_layout_grad``), where GSPMD would pick one.
 """
 from __future__ import annotations
 
@@ -182,13 +184,13 @@ def forward_hidden(params: Transformer, cfg: ModelConfig, ec: ExecConfig,
     positions = torch.arange(S, device=h.device) if cfg.use_rope else None
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for lp in _first_layers(params):          # dense: no aux
-        h, _ = block_full(lp, cfg, ec, h, positions)
+        h, _ = block_full(lp, cfg, ec, L.same_layout_grad(h), positions)
     block = _maybe_remat(block_full, ec) if train else block_full
     for lp in params.layers:
-        h, a = block(lp, cfg, ec, h, positions)
+        h, a = block(lp, cfg, ec, L.same_layout_grad(h), positions)
         if a is not None:
             aux = aux + a
-    return L.norm_apply(params.final_norm, cfg, h), aux
+    return L.norm_apply(params.final_norm, cfg, L.same_layout_grad(h)), aux
 
 
 def forward_train(params: Transformer, cfg: ModelConfig, ec: ExecConfig,

@@ -30,6 +30,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.common import as_dtensor
 from repro_torch.models.layers import trunc_normal
 from repro_torch.models.model import build_model
 
@@ -65,7 +66,9 @@ def numpy_to_torch(a) -> torch.Tensor:
 
 def torch_to_numpy(t: torch.Tensor) -> Union[np.ndarray, Bits]:
     """A copy of a tensor on the host: a numpy array, or :class:`Bits` for
-    bf16."""
+    bf16 (a ``DTensor`` gathered whole first)."""
+    if as_dtensor(t) is not None:
+        t = t.full_tensor()
     t = t.detach().to("cpu", copy=True)
     if t.dtype == torch.bfloat16:
         return Bits(t.view(torch.int16).numpy().view(np.uint16), "bfloat16")

@@ -25,6 +25,8 @@ from typing import Any, Callable, Mapping, NamedTuple, Tuple
 import torch
 from torch import nn
 
+from repro_torch.kernels.common import as_dtensor
+
 
 class SGDState(NamedTuple):
     step: torch.Tensor
@@ -35,6 +37,16 @@ def zeros_like_params(params: nn.Module, dtype=None) -> nn.Module:
     """A module of ``params``'s class on its device, every parameter zero
     (in ``dtype`` when given, else in its own)."""
     device = next(params.parameters()).device
+    if as_dtensor(next(params.parameters())) is not None:
+        # DTensor parameters: each state leaf placed as its parameter
+        out = type(params)(params.cfg, device="meta")
+        for name, p in params.named_parameters():
+            mod, _, leaf = name.rpartition(".")
+            owner = out.get_submodule(mod) if mod else out
+            owner._parameters[leaf] = nn.Parameter(
+                torch.zeros_like(p, dtype=dtype or p.dtype),
+                requires_grad=False)
+        return out
     out = type(params)(params.cfg, device="meta").to_empty(device=device)
     if dtype is not None:
         out = out.to(dtype)
@@ -51,8 +63,18 @@ def _step0(params: nn.Module) -> torch.Tensor:
 
 def _apply(params: nn.Module, upd, lr, weight_decay: float) -> None:
     """p <- cast(p32 - lr * (upd + weight_decay * p32)), in place; ``upd``
-    f32 tensors in parameter order (not written to)."""
+    f32 tensors in parameter order (not written to).  ``DTensor``
+    parameters take the same arithmetic one leaf at a time: ``DTensor``
+    resolves a sharding strategy for each list a foreach op takes, which
+    costs more than the ops, and has no foreach copy."""
     ps = list(params.parameters())
+    if as_dtensor(ps[0]) is not None:
+        for p, u in zip(ps, upd):
+            p32 = p.float()
+            if weight_decay:
+                u = torch.add(u, p32, alpha=weight_decay)
+            p.copy_(p32 - u * lr)
+        return
     p32 = [p.float() for p in ps]
     if weight_decay:
         upd = torch._foreach_add(upd, p32, alpha=weight_decay)

@@ -23,6 +23,8 @@ TWINS = ["quickstart_torch", "matmul_chained_torch", "sgd_hogwild_torch",
          "benchmarks.bench_sgd_training_torch", "benchmarks.bench_matmul_torch",
          "benchmarks.bench_dispatch_torch", "benchmarks.bench_micro_torch",
          "benchmarks.bench_coldstart_torch", "benchmarks.run_torch"]
+# readers of the dry-run's artifacts: they run on no device
+READERS = ["benchmarks.bench_roofline_torch", "benchmarks.report_torch"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -45,6 +47,9 @@ def test_port_file_imports_no_jax_or_repro(path):
 def test_importing_the_launcher_loads_no_jax_or_repro():
     code = ("import sys, repro_torch.launch.serve, repro_torch.models.weights\n"
             "import repro_torch.launch.train, repro_torch.launch.steps\n"
+            "import repro_torch.launch.dryrun, repro_torch.launch.mesh\n"
+            "import repro_torch.distributed.elastic\n"
+            "import repro_torch.distributed.pipeline\n"
             "import repro_torch.checkpoint, repro_torch.optim, repro_torch.data\n"
             "import repro_torch.core, repro_torch.state\n"
             "import repro_torch.kernels.state_push\n"
@@ -71,7 +76,7 @@ def test_the_paper_twins_are_scanned():
 def test_importing_the_paper_twins_loads_no_jax_or_repro():
     code = ("import sys\n"
             f"sys.path[:0] = [{str(REPO / 'examples')!r}, {str(REPO)!r}]\n"
-            + "".join(f"import {m}\n" for m in TWINS)
+            + "".join(f"import {m}\n" for m in TWINS + READERS)
             + "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "assert not bad, bad\n")

@@ -411,7 +411,7 @@ def test_dispatch_twin_emits_every_row_on_the_cpu(capsys):
 def test_run_torch_drives_a_table_on_the_cpu(capsys):
     from benchmarks import run_torch
     assert list(run_torch.TABLES) == ["fig6", "fig7", "fig8", "fig9", "tab3",
-                                      "dispatch"]
+                                      "dispatch", "roofline"]
     run_torch.main(["fig8", *CPU])
     out = capsys.readouterr().out
     assert out.startswith("name,us_per_call,derived")

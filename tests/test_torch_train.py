@@ -679,7 +679,7 @@ def test_train_launcher_raises_without_a_card(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ttrain.main(["--smoke", "--steps", "1", "--ckpt-dir", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(ValueError, match="needs a process group of 512"):
         ttrain.main(["--multi-pod", "--device", "cpu"])
 
 
