@@ -99,8 +99,9 @@ Phases, each fatal on failure:
    CUDA graph of the call, a kernel); the state-push
    kernels also at 16 Mi elements, and one host-side encode of numpy
    operands beside the host codec; then the warm prefill and decode loop,
-   eager and graphed side by side (two runs each, and the capture
-   time), and one profiled run of each for the device's busy share;
+   eager and graphed side by side (one run each, and the capture
+   time), and one profiled run of each for the device's busy share (its
+   last ``PROFILE_STEPS`` decode steps, as every served model's);
 8. moe serve: the launcher's main path on deepseek-moe-16b at full width
    (16.4 B parameters, bf16, random weights from the seed; batch 4,
    prompt 512, 32 new tokens), counters zeroed just before: the prefill
@@ -176,15 +177,25 @@ Phases, each fatal on failure:
    layer's shape; one step on the kernel path against the plain path on
    the same weights and batch (widened to f32: losses within 1e-4, every
    gradient leaf within 1e-3 relative L2; bf16: losses within 3e-2, the
-   leaves' relative L2 printed); then the main path,
-   ``examples/train_lm_torch.py`` for 8 steps with every counter zeroed
-   just before: K5 exactly twice per layer and step (the forward and the
-   remat recompute), no other kernel, the loss finite at every step,
+   leaves' relative L2 printed); the captured train step
+   (``launch/train_graphs.py``) against the eager step of
+   ``make_train_step`` from the same weights, optimizer state and batch:
+   the loss, aux loss, gradient norm, every updated parameter and the
+   optimizer state bitwise, and one step's launches in the graph's log,
+   exact; then the main path, ``examples/train_lm_torch.py`` for 8 steps
+   through the captured step (step 0 eager, then one replay a step) with
+   every counter zeroed just before: K5 exactly twice per layer and step
+   (the forward and the remat recompute), per replay too, no other
+   kernel, the loss finite at every step,
    every weight matrix moved, one more step's update bitwise equal to
    cast(p32 - lr g32) leaf by leaf; the step time (host clock ending in
    a sync), tokens/s, ``train_mfu`` (6 N T plus causal attention over
    the step time at 989 TFLOP/s), peak memory, the forward, backward
-   and update by CUDA events, the profiled busy share; K5 timed at the
+   and update by CUDA events, the profiled busy share; the graph
+   captured again on the trained weights and one captured step beside
+   one eager step by CUDA events, each one's busy share (the eager
+   step's profiled kernels over each step's time), the captures' host
+   time and the memory each holds; K5 timed at the
    training forward beside SDPA's forward, and the plain flash backward
    beside SDPA's backward;
 16. training, mamba2-130m and then zamba2-1.2b at full width, as phase
@@ -328,8 +339,8 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 ARCH, BATCH, PROMPT, NEW_TOKENS, SEED = "qwen1.5-0.5b", 4, 512, 32, 0
-PROFILE_STEPS = 8          # decode steps a decode-only warm profile covers
-WARM_RUNS = 2              # unprofiled runs of each warm serving loop
+PROFILE_STEPS = 4          # decode steps a decode-only warm profile covers
+WARM_RUNS = 1              # unprofiled runs of each warm serving loop
 MOE_ARCH = "deepseek-moe-16b"
 SSM_ARCHS = ("mamba2-130m", "zamba2-1.2b")
 # the grouped-query decoders (qwen3-4b and granite-3-8b share H 32 over K 8)
@@ -353,7 +364,7 @@ SSD_TOL = {"float32": 1e-4, "bfloat16": 3e-2}   # the reference's ssd, bf16
 LOGIT_TOL = 5e-2                            # bf16 model tolerance (atol = rtol)
 MIN_ARGMAX_AGREEMENT = 0.9                  # bf16 near-ties may flip a few
 FANOUT_REQUESTS, FANOUT_WARM = 64, 8       # the wave; the launcher's warm-up
-FANOUT_EAGER = 16                           # the eager wave beside it
+FANOUT_EAGER = 8                            # the eager wave beside it
 FIG7_REQUESTS = 12                          # the Fig. 7 twin's requests
 # the paper phase: Fig. 6 at RCV1's feature count (data/sparse.py imitates
 # RCV1) and 4,096 examples; Fig. 8 at n 2,048
@@ -2801,9 +2812,10 @@ def _serve_once(model, params, tokens, decode_ctx=contextlib.nullcontext,
                 extra=None, ctx_steps: int = NEW_TOKENS - 1) -> tuple:
     """Prefill + greedy decode of the kernel path, op by op from Python
     (the eager loop): (prefill s, s of the last ``ctx_steps`` decode
-    steps, s of all decode steps); ``prefill_ctx`` wraps the prefill and ``decode_ctx`` those
-    decode steps (a profiler); a list ``kept`` receives every step's
-    logits; ``extra`` is the family's extra input."""
+    steps, s of all decode steps); ``prefill_ctx`` wraps the prefill and
+    ``decode_ctx`` those decode steps (a profiler); a list ``kept``
+    receives every step's logits; ``extra`` is the family's extra
+    input."""
     import torch
     with torch.no_grad(), contextlib.ExitStack() as stack:
         cache = model.init_cache(BATCH, cache_len(model.cfg), "cuda")
@@ -2912,17 +2924,18 @@ def _busy(prof) -> tuple:
     return busy_us / 1e3, sum(e.count for e in events), events
 
 
-def phase_warm_serve(res, decode_only: bool = False) -> None:
+def phase_warm_serve(res) -> None:
     """Warm prefill and decode-loop times on the weights and prompt of the
     main-path run, of the eager loop (``_serve_once``) and of the
     launcher's graphed loop (``ServeGraphs.generate``), ``WARM_RUNS`` each,
     then one run of each under torch.profiler for the device's busy
-    share and the ops that hold it (with ``decode_only``, the profiler
-    covers the loop's last ``PROFILE_STEPS`` decode steps alone, beside
-    the unprofiled runs' wall of the same steps, ``WARM_RUNS`` more for the
-    graphed loop: reading a trace of all 31 steps took 10-20 s a model).  The graphed profile replays the
-    graphs as ``_serve_once`` runs the eager loop; it must hold one record
-    for each node of the graphs it replays (counted by libcuda's
+    share and the ops that hold it.  The profiler covers the loop's last
+    ``PROFILE_STEPS`` decode steps alone (reading a trace of all 31 steps
+    took 10-20 s a model; no warm prefill is profiled), beside the
+    unprofiled runs' wall of the same steps (``WARM_RUNS`` more for the
+    graphed loop).  The graphed profile replays the graphs as
+    ``_serve_once`` runs the eager loop; it must hold one record for each
+    node of the graphs it replays (counted by libcuda's
     ``cuGraphGetNodes`` on graphs of the same steps), or its trace is not
     whole and the graphed busy share is the eager profile's device ms
     over the graphed wall, logged so beside the graphed trace's own."""
@@ -2931,7 +2944,7 @@ def phase_warm_serve(res, decode_only: bool = False) -> None:
     model, params, tokens = res["model"], res["params"], res["tokens"]
     graphs, name, extra = res["graphs"], res["cfg"].name, res.get("extra")
     steps = NEW_TOKENS - 1
-    k = PROFILE_STEPS if decode_only else steps   # decode steps profiled
+    k = PROFILE_STEPS                             # decode steps profiled
     runs = [_serve_once(model, params, tokens, extra=extra, ctx_steps=k)
             for _ in range(WARM_RUNS)]
     g_runs = [graphs.generate(tokens, NEW_TOKENS) for _ in range(WARM_RUNS)]
@@ -2945,33 +2958,24 @@ def phase_warm_serve(res, decode_only: bool = False) -> None:
         f"{[rate(r) for r in g_runs]}; capture {res['capture_s'] * 1e3:.1f}ms"
         f"; host ms to queue a decode replay {[round(h[0], 4) for h in host]}"
         f" of {[round(h[1], 4) for h in host]} ms per step")
-    pick = (lambda r: r[1]) if decode_only else (lambda r: r[0] + r[1])
-    what = (f"the last {k} of {steps} decode steps" if decode_only
-            else f"one prefill + {steps} decode steps")
     out = {}
     for loop, serve_fn, warm_runs in (
             ("eager", lambda **kw: _serve_once(model, params, tokens,
                                                extra=extra, **kw), runs),
             ("graphed", lambda **kw: _serve_graphed(graphs, tokens, **kw),
-             g_runs)):
-        if decode_only and loop == "graphed":   # the wall of the same k
+             None)):
+        if warm_runs is None:             # the graphed wall of the same k
             warm_runs = [serve_fn(ctx_steps=k) for _ in range(WARM_RUNS)]
         prof = profile(activities=[ProfilerActivity.CUDA])
-        if decode_only:
-            wall = pick(serve_fn(decode_ctx=lambda: prof, ctx_steps=k))
-        else:
-            with prof:
-                wall = pick(serve_fn())
+        wall = serve_fn(decode_ctx=lambda: prof, ctx_steps=k)[1]
         busy_ms, n_kernels, events = _busy(prof)
-        warm_wall = min(pick(r) for r in warm_runs)
+        warm_wall = min(r[1] for r in warm_runs)
         out[loop] = (busy_ms, n_kernels, warm_wall, events)
-        per_step = (f" ({n_kernels / k:.0f} per decode step)"
-                    if decode_only else "")
-        log(f"profile {name} {loop} ({what}): device busy {busy_ms:.1f}ms "
-            f"in {n_kernels} kernels{per_step}; "
+        log(f"profile {name} {loop} (the last {k} of {steps} decode steps): "
+            f"device busy {busy_ms:.1f}ms in {n_kernels} kernels "
+            f"({n_kernels / k:.0f} per decode step); "
             f"{100 * busy_ms / 1e3 / warm_wall:.1f}% of the fastest "
-            f"unprofiled run's {warm_wall * 1e3:.1f}ms wall "
-            f"{'(the same steps) ' if decode_only else ''}"
+            f"unprofiled run's {warm_wall * 1e3:.1f}ms wall (the same steps) "
             f"({wall * 1e3:.1f}ms under the profiler)")
         for e in sorted(events, key=lambda e: e.self_device_time_total,
                         reverse=True)[:8]:
@@ -2982,12 +2986,9 @@ def phase_warm_serve(res, decode_only: bool = False) -> None:
     with torch.no_grad():
         graphs.prefill(tokens)        # a position the decode step may write
         nodes = k * len(graph_node_types(graphs._decode_body))
-        if not decode_only:
-            nodes += len(graph_node_types(graphs._prefill_body))
     whole = out["graphed"][1] == nodes
     busy = out["graphed"][0] if whole else out["eager"][0]
-    odd = {e.key[:50]: e.count for e in out["graphed"][3]
-           if decode_only and e.count % k}
+    odd = {e.key[:50]: e.count for e in out["graphed"][3] if e.count % k}
     log(f"busy share {name}: eager "
         f"{100 * out['eager'][0] / 1e3 / out['eager'][2]:.1f}%, graphed "
         f"{100 * busy / 1e3 / out['graphed'][2]:.1f}% ("
@@ -2996,8 +2997,7 @@ def phase_warm_serve(res, decode_only: bool = False) -> None:
            "ms over the graphed wall; the graphed trace's own: "
            f"{100 * out['graphed'][0] / 1e3 / out['graphed'][2]:.1f}%")
         + f"): {out['graphed'][1]} records against the graphs' {nodes} "
-        f"nodes ({nodes / k if decode_only else nodes}"
-        f"{' per step' if decode_only else ''}), the eager loop's "
+        f"nodes ({nodes / k} per step), the eager loop's "
         f"{out['eager'][1]}; records not a multiple of the steps: {odd}")
 
 
@@ -3630,6 +3630,93 @@ def phase_train_holds(cfg) -> None:
     torch.cuda.empty_cache()
 
 
+def _log_launches(log, counters) -> tuple:
+    """(launches by counter name, K5's by shape) in a ``LaunchLog``."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    return ({k: log.count(c) for k, c in counters.items()},
+            log.by_key(flash_ops.LAUNCHES))
+
+
+def phase_train_graph_hold(cfg) -> None:
+    """The captured train step (``launch/train_graphs.py``) against the
+    eager step of ``make_train_step``, the factory the launchers wrap, at
+    the main path's execution config (remat full, loss chunks of 128, one
+    microbatch, SGD with warmup_cosine(0.05)), full width, B 4, S 4096:
+    from the same parameters, optimizer state and batch, one eager step
+    (the captured step's warm-up, on its capture stream) and one replay
+    of the captured step give the same loss, aux loss, gradient norm,
+    every updated parameter and the optimizer state, bitwise.  The start
+    and the eager results wait in host memory (no second parameter set on
+    the card); the start is put back in place before the capture.  The
+    graph's launch log holds one step's K5 and K8 launches exactly (by
+    shape too), as many as the eager step counted, and the replay adds
+    them to the counters."""
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train_graphs import GraphedTrainStep, written
+    from repro_torch.models import ExecConfig, build_model
+    from repro_torch.models.weights import trainable
+    from repro_torch.optim import SGD, warmup_cosine
+    shape = ShapeConfig("train_4k_b4", "train", TRAIN_SEQ, TRAIN_BATCH)
+    model = build_model(cfg, ExecConfig(loss_chunk=min(TRAIN_SEQ, 128)))
+    opt = SGD(lr=warmup_cosine(0.05, TRAIN_STEPS // 10 + 1, TRAIN_STEPS))
+    params = trainable(model.init(
+        torch.Generator(device="cuda").manual_seed(SEED), "cuda"))
+    state = opt.init(params)
+    batch = _train_batch(cfg, 0)
+    want, want_shape = _train_launches(cfg, 1)
+    counters = launch_counters()
+    t0 = time.perf_counter()
+    start = [t.detach().cpu() for t in written(params, state)]
+    graphed = GraphedTrainStep(make_train_step(model, opt, shape), "cuda")
+    reset_launches()
+    p, s, m = graphed(params, state, batch)          # the eager warm-up
+    torch.cuda.synchronize()
+    eager = (read_launches(), flash_ops.LAUNCHES.by_key())
+    eager_m = {k: v.cpu() for k, v in m.items()}
+    eager_t = [t.detach().cpu() for t in written(p, s)]
+    del p, s, m
+    with torch.no_grad():
+        for t, h in zip(written(params, state), start):
+            t.copy_(h)
+    del start
+    reset_launches()
+    p, s, m = graphed(params, state, batch)          # capture, one replay
+    torch.cuda.synchronize()
+    replayed = (read_launches(), flash_ops.LAUNCHES.by_key())
+    log_launches = _log_launches(graphed.launches, counters)
+    same_m = {k: torch.equal(v.cpu(), eager_m[k]) for k, v in m.items()}
+    bad = [i for i, (t, h) in enumerate(zip(written(p, s), eager_t))
+           if not torch.equal(t.detach().cpu(), h)]
+    n_leaves = len(eager_t)
+    del eager_t
+    log(f"  captured step hold {cfg.name}: one replay against one eager step "
+        f"from the same start: loss {float(m['loss']):.6f} vs "
+        f"{float(eager_m['loss']):.6f}, grad_norm {float(m['grad_norm']):.6f} "
+        f"vs {float(eager_m['grad_norm']):.6f}; metrics bitwise {same_m}; "
+        f"{n_leaves - len(bad)} of {n_leaves} parameter and optimizer-state "
+        f"tensors bitwise; capture {graphed.capture_ms:.1f}ms host; launches "
+        f"eager {eager[0]} (K5 by shape {eager[1]}), replay {replayed[0]}, "
+        f"the graph's log {log_launches[0]} (expected {want}, K5 by shape "
+        f"{want_shape}); {time.perf_counter() - t0:.1f}s")
+    graphed.close()
+    del graphed, p, s, m, params, state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not all(same_m.values()) or bad:
+        raise AssertionError(f"{cfg.name}: the captured step differs from "
+                             f"the eager step: metrics {same_m}, tensors "
+                             f"{bad[:8]} of {n_leaves}")
+    for what, (got, by_shape) in (("eager", eager), ("replay", replayed),
+                                  ("graph log", log_launches)):
+        if got != want or by_shape != want_shape:
+            raise AssertionError(f"{cfg.name} {what} launches {got}, K5 by "
+                                 f"shape {by_shape}; expected {want}, "
+                                 f"{want_shape}")
+
+
 def _train_flops(cfg, params) -> float:
     """Model FLOP of one step: 6 N T for the weights, each weight counted
     over the tokens that pass it (the tied embedding once, as the
@@ -3683,31 +3770,67 @@ def _train_launches(cfg, steps: int) -> tuple:
     return want, by_shape
 
 
+def _event_ms(fn) -> tuple:
+    """(ms between CUDA events around one call of ``fn``, the host's ms
+    until the call returned)."""
+    import torch
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    h0 = time.perf_counter()
+    ev[0].record()
+    fn()
+    ev[1].record()
+    host_ms = (time.perf_counter() - h0) * 1e3
+    torch.cuda.synchronize()
+    return ev[0].elapsed_time(ev[1]), host_ms
+
+
+def _profiled_step(fn) -> tuple:
+    """One call of ``fn`` under torch.profiler, between CUDA events:
+    (device busy ms, records, the events' ms, the device events).  The
+    busy ms over the events' ms of the same call is a share of one run."""
+    from torch.profiler import ProfilerActivity, profile
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    with prof:
+        ms, _ = _event_ms(fn)
+    busy_ms, n, events = _busy(prof)
+    return busy_ms, n, ms, events
+
+
 def phase_train(smi: str, cfg, steps: int) -> tuple:
     """The training main path: ``examples/train_lm_torch.py`` at full width
     (``cfg``'s architecture, random weights from the seed, train_4k's
     sequence of 4,096 at batch 4, SGD with warmup_cosine(0.05), remat
-    full), ``steps`` steps, every counter zeroed just before and
+    full), ``steps`` steps through the captured step (step 0 eager, the
+    capture, then one replay a step), every counter zeroed just before and
     read just after: K5 (each attention call of ``train_shapes``) and K8
     (each Mamba layer) launch exactly twice per call and step (forward
-    and remat recompute), K5 by shape too, no other kernel launches.  The
-    loss must be finite at every step and every weight matrix (the embedding,
+    and remat recompute), K5 by shape too, no other kernel launches, and
+    the graph's log holds exactly one step's.  While the graph is held,
+    one more step (the batch's copy and a replay) is timed between CUDA
+    events and one is profiled, also between events: its device time over
+    its own event time is a busy share of one run, which a record the
+    profiler lost can only lower.  The trained weights wait on the host,
+    and the graph is freed.  The loss
+    must be finite at every step and every weight matrix (the embedding,
     attention, MLP and Mamba leaves of two or more axes) must have moved
-    by the last step.  A leaf whose every element's f32 step stays under
-    half a bf16 ulp keeps its value, as in the reference (the update is
-    cast to bf16 with no f32 master copy): the unit norm scales do at lr
-    0.05.  So one more step holds the update itself: every leaf bitwise
-    equal to the reference's rule, cast(p32 - lr g32), computed leaf by
-    leaf, and each unmoved leaf's largest step is printed against half an
-    ulp.  Then one step with CUDA events around the forward, backward and
-    update, and one under the profiler for the device's busy share.
+    over the example's steps.  A leaf whose every element's f32 step
+    stays under half a bf16 ulp keeps its value, as in the reference (the
+    update is cast to bf16 with no f32 master copy): the unit norm scales
+    do at lr 0.05.  So one more (eager) step holds the update itself:
+    every leaf bitwise equal to the reference's rule, cast(p32 - lr g32),
+    computed leaf by leaf, and each unmoved leaf's largest step is
+    printed against half an ulp.  Then the step that was captured
+    (``GraphedTrainStep.step``) runs eagerly, once between CUDA events
+    and once profiled the same way, and one step of the same work with
+    CUDA events around its forward, backward and update.
     Returns (the config, the run's launches, K5's by shape)."""
     import shutil
     import tempfile
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.models import ExecConfig, build_model
     from repro_torch.optim import SGD, warmup_cosine
+    from repro_torch.launch.train_graphs import GraphedTrainStep
     sys.path.insert(0, str(ROOT / "examples"))
     import train_lm_torch as twin
     from repro_torch.kernels.flash_attention import ops as flash_ops
@@ -3730,30 +3853,61 @@ def phase_train(smi: str, cfg, steps: int) -> tuple:
     launches = read_launches()
     by_shape = flash_ops.LAUNCHES.by_key()
     peak_gb = (torch.cuda.max_memory_allocated() - base_mem) / 1e9
+    held_gb = torch.cuda.memory_reserved() / 1e9
     cfg, params, state = res["cfg"], res["params"], res["state"]
+    graphed = res["step"]
     want, want_shape = _train_launches(cfg, steps)
+    one, one_shape = _train_launches(cfg, 1)
+    if not isinstance(graphed, GraphedTrainStep) or \
+            graphed.replays != steps - 1:
+        raise AssertionError(f"the example ran {graphed!r}, not the captured "
+                             f"step replayed {steps - 1} times")
+    per_replay = _log_launches(graphed.launches, launch_counters())
+    capture_ms = graphed.capture_ms
     log(f"  launches {launches} (expected {want}: K5 and K8 forward and "
         f"remat recompute in each attention call and Mamba layer of "
-        f"{steps} steps); K5 by shape {by_shape} (expected {want_shape})")
-    if launches != want or by_shape != want_shape:
+        f"{steps} steps: step 0 eager, then {graphed.replays} replays of the "
+        f"captured step); K5 by shape {by_shape} (expected {want_shape}); "
+        f"per replay {per_replay[0]}, K5 by shape {per_replay[1]}; capture "
+        f"{capture_ms:.1f}ms host")
+    if launches != want or by_shape != want_shape or \
+            per_replay != (one, one_shape):
         raise AssertionError(f"train launches {launches}, K5 by shape "
-                             f"{by_shape}; expected {want}, {want_shape}")
+                             f"{by_shape}, per replay {per_replay}; expected "
+                             f"{want}, {want_shape}, ({one}, {one_shape})")
+    # the example's graph, still held: one more step (the batch's copy and
+    # a replay) between CUDA events, then one under the profiler, also
+    # between events, for a busy share of one run; the trained weights
+    # wait on the host for the check below
+    trained = [p.detach().cpu() for p in params.parameters()]
+    batch = _train_batch(cfg, steps)
+    g_ms, host_ms = _event_ms(lambda: graphed(params, state, batch))
+    g_busy, g_n, g_prof_ms, _ = _profiled_step(
+        lambda: graphed(params, state, batch))
+    n_copies = len(graphed.batch)
+    eager_step = graphed.step
+    graphed.close()        # the graph's pool makes room for the initial weights
+    del graphed, res["step"]
+    gc.collect()
+    torch.cuda.empty_cache()
     losses = [float(x) for x in res["losses"]]
     log(f"  loss by step: {[round(x, 5) for x in losses]}")
     if len(losses) != steps or not all(map(math.isfinite, losses)):
         raise AssertionError(f"train losses {losses}")
     init = build_model(cfg).init(        # the example's weights, seed 0
         torch.Generator(device="cuda").manual_seed(0))
-    same = [n for (n, a), b in zip(params.named_parameters(),
-                                   init.parameters()) if torch.equal(a, b)]
-    n_leaves = len(list(init.parameters()))
-    del init
+    names = [n for n, _ in params.named_parameters()]
+    same = [n for n, a, b in zip(names, trained, init.parameters())
+            if torch.equal(a.to(b.device), b)]
+    n_leaves = len(trained)
+    del init, trained
     stuck = [n for n in same if params.get_parameter(n).ndim >= 2]
     if stuck:
         raise AssertionError(f"{len(stuck)} weight matrices did not change: "
                              f"{stuck[:4]}")
-    log(f"  {n_leaves - len(same)} of {n_leaves} parameter leaves changed, "
-        f"every weight matrix among them; unchanged: {len(same)} "
+    log(f"  {n_leaves - len(same)} of {n_leaves} parameter leaves changed "
+        f"over the example's {steps} steps, every weight matrix among them; "
+        f"unchanged: {len(same)} "
         f"({sorted({n.rsplit('.', 2)[-2] + '.' + n.rsplit('.', 1)[-1] for n in same})})")
     flops = _train_flops(cfg, params)
     step_s = res["step_s"][TRAIN_WARM:]
@@ -3769,10 +3923,8 @@ def phase_train(smi: str, cfg, steps: int) -> tuple:
         f"before; {smi}")
     MEASURED[arch] = {"step_ms": mean_s * 1e3, "peak_gb": peak_gb,
                       "model_flops": flops}
-    # one more step, its phases bracketed by CUDA events, then one profiled
     model = build_model(cfg, ExecConfig(loss_chunk=min(TRAIN_SEQ, 128)))
     opt = SGD(lr=warmup_cosine(0.05, steps // 10 + 1, steps))
-    names = [n for n, _ in params.named_parameters()]
 
     def step(batch, ev=None):
         mark = (lambda i: ev[i].record()) if ev else (lambda i: None)
@@ -3784,7 +3936,6 @@ def phase_train(smi: str, cfg, steps: int) -> tuple:
         opt.update(dict(zip(names, grads)), state, params)
         mark(3)
 
-    batch = _train_batch(cfg, steps)
     # the update of one step against the reference's rule, leaf by leaf
     before = [p.detach().clone() for p in params.parameters()]
     loss, _ = model.loss(params, batch)
@@ -3810,28 +3961,40 @@ def phase_train(smi: str, cfg, steps: int) -> tuple:
         f"a bf16 ulp (the smaller neighbour's): "
         f"{max(ratio.values()) if ratio else 0:.3f} "
         f"(below 1: the cast keeps them)")
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-    step(batch, ev)              # warm: the step above ran the same work
-    torch.cuda.synchronize()
-    fwd, bwd, upd = (ev[i].elapsed_time(ev[i + 1]) for i in range(3))
-    prof = profile(activities=[ProfilerActivity.CUDA])
-    t0 = time.perf_counter()
-    with prof:
-        step(batch)
-        torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    busy_ms, n_kernels, events = _busy(prof)
-    log(f"train {arch} one step by CUDA events: forward {fwd:.2f}ms, "
-        f"backward (remat recompute included) {bwd:.2f}ms, SGD update "
-        f"{upd:.2f}ms; profiled step: device busy {busy_ms:.1f}ms in "
-        f"{n_kernels} kernels, {100 * busy_ms / 1e3 / mean_s:.1f}% of the "
-        f"unprofiled steps' mean {mean_s * 1e3:.1f}ms ({100 * busy_ms / 1e3 / wall:.1f}% "
-        f"of its own {wall * 1e3:.1f}ms wall under the profiler); {smi}")
+    # the step that was captured, run eagerly (warm: the step above ran
+    # the same work): once between CUDA events, once profiled
+    torch.cuda.reset_peak_memory_stats()
+    e_ms, _ = _event_ms(lambda: eager_step(params, state, batch))
+    eager_gb = torch.cuda.max_memory_allocated() / 1e9
+    e_busy, e_n, e_prof_ms, events = _profiled_step(
+        lambda: eager_step(params, state, batch))
+    log(f"train {arch} captured vs eager step (CUDA events, one step each, "
+        f"B {TRAIN_BATCH} S {TRAIN_SEQ}, the example's step function both): "
+        f"captured {g_ms:.2f}ms (the batch's copy and one replay; the "
+        f"host's call returns after {host_ms:.2f}ms), eager {e_ms:.2f}ms, "
+        f"captured/eager {g_ms / e_ms:.4f}; device busy in one profiled "
+        f"step over its own CUDA-event ms: captured {g_busy:.1f} of "
+        f"{g_prof_ms:.1f}ms = {100 * g_busy / g_prof_ms:.1f}% ({g_n} "
+        f"records with the batch's {n_copies} copies), eager {e_busy:.1f} of "
+        f"{e_prof_ms:.1f}ms = {100 * e_busy / e_prof_ms:.1f}% ({e_n} "
+        f"records; a record the profiler lost only lowers a share); "
+        f"capture {capture_ms:.1f}ms host; "
+        f"memory: {held_gb:.2f} GB reserved with the graph held (its pool, "
+        f"the weights, the optimizer state), peak {peak_gb:.2f} GB allocated "
+        f"over the example's run (warm-up and capture), eager step peak "
+        f"{eager_gb:.2f} GB allocated; {smi}")
     for e in sorted(events, key=lambda e: e.self_device_time_total,
                     reverse=True)[:10]:
         log(f"  {e.self_device_time_total / 1e3:8.2f}ms  {e.count:6d}x  "
             f"{e.key[:90]}")
-    del model, params, state, res
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    step(batch, ev)
+    torch.cuda.synchronize()
+    fwd, bwd, upd = (ev[i].elapsed_time(ev[i + 1]) for i in range(3))
+    log(f"train {arch} one step by CUDA events: forward {fwd:.2f}ms, "
+        f"backward (remat recompute included) {bwd:.2f}ms, SGD update "
+        f"{upd:.2f}ms; {smi}")
+    del model, params, state, res, eager_step
     gc.collect()
     torch.cuda.empty_cache()
     return cfg, launches, by_shape
@@ -3951,7 +4114,7 @@ def phase_gqa(arch: str, errs) -> list:
     plain_logits = phase_reference(res)
     phase_sublayers(res)
     rows = phase_timing(res, launches, errs)
-    phase_warm_serve(res, decode_only=True)
+    phase_warm_serve(res)
     close_graphs(res)         # room for the f32 copy beside the bf16 one
     phase_f32_witness(res, plain_logits)
     del plain_logits
@@ -4111,7 +4274,7 @@ def phase_family(arch: str, errs) -> list:
     plain_logits = phase_reference(res)
     phase_sublayers(res)
     rows = phase_timing_family(res, by_shape, errs)
-    phase_warm_serve(res, decode_only=True)
+    phase_warm_serve(res)
     close_graphs(res)
     phase_f32_witness(res, plain_logits)
     del plain_logits
@@ -4139,6 +4302,7 @@ def phase_training(spec: tuple, errs, smi: str) -> list:
     if cfg.ssm_state:
         errs.update(phase_train_parity_ssd(cfg))
     phase_train_holds(cfg)
+    phase_train_graph_hold(cfg)
     cfg, launches, by_shape = phase_train(smi, cfg, steps)
     rows = []
     for shape, n in by_shape.items():
@@ -4547,7 +4711,7 @@ def main(argv) -> int:
     rows += phase_timing_flash(moe_res, moe_launches["flash_attention"], errs)
     rows += phase_timing_decode(moe_res, moe_launches["decode_attention"],
                                 errs)
-    phase_warm_serve(moe_res, decode_only=True)
+    phase_warm_serve(moe_res)
     free_model(moe_res)           # the MoE model leaves the card
     for arch in SSM_ARCHS:
         res, ssm_launches = phase_ssm_serve(arch)
@@ -4561,7 +4725,7 @@ def main(argv) -> int:
                                        errs)
             rows += phase_timing_decode(res, ssm_launches["decode_attention"],
                                         errs)
-        phase_warm_serve(res, decode_only=True)
+        phase_warm_serve(res)
         free_model(res)
     for arch in GQA_ARCHS:        # one at a time, each freed after its phase
         rows += phase_gqa(arch, errs)

@@ -11,9 +11,14 @@ model at train_4k's sequence length, its batch cut from 256 to 4
 the forward and the plain chunked scan in the backward, and ``--arch
 whisper-tiny``, ``internvl2-2b`` and ``qwen3-4b``: the encoder/decoder
 batch carries 1,500 frames a row and the VLM's 256 patch embeddings
-ahead of 3,840 text tokens, every attention call through K5).  The step is
-eager (one sync per logged step); checkpoints are the reference's
-layout, so either script resumes the other's.
+ahead of 3,840 text tokens, every attention call through K5).  On the
+card the step is captured as a CUDA graph, as the reference jits it
+(``repro_torch.launch.train_graphs``): step 0 runs eagerly as the
+warm-up, the next step captures it (after any ``--resume``) and replays,
+and every later step is one copy of the batch and one replay; a failed
+capture or replay raises.  The CPU runs the step eagerly.  Each step
+ends in a sync of the card; checkpoints are the reference's layout, so
+either script resumes the other's.
 
 Run:  PYTHONPATH=src python examples/train_lm_torch.py --smoke --device cpu
       PYTHONPATH=src python examples/train_lm_torch.py --arch qwen1.5-0.5b \\
@@ -29,6 +34,7 @@ from repro_torch.configs import get_config, smoke_config
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.data import PipelineConfig, make_batch
 from repro_torch.kernels.common import resolve_device
+from repro_torch.launch import train_graphs
 from repro_torch.launch.train import to_device
 from repro_torch.models import ExecConfig, build_model
 from repro_torch.models.weights import trainable
@@ -57,7 +63,9 @@ def parser() -> argparse.ArgumentParser:
 def main(argv=None) -> dict:
     """Trains; returns the config, each step's loss (tensors on the device)
     and host seconds (ending in a sync of the card), the parameters and
-    the optimizer state after the last step."""
+    the optimizer state after the last step, and the step it ran
+    (``step``: on the card a
+    :class:`~repro_torch.launch.train_graphs.GraphedTrainStep`)."""
     args = parser().parse_args(argv)
     device = resolve_device(args.device)
     if args.smoke:
@@ -104,6 +112,7 @@ def main(argv=None) -> dict:
         params, state = opt.update(dict(zip(names, grads)), state, params)
         return params, state, loss.detach()
 
+    step_fn = train_graphs.for_device(train_step, device)
     pc = PipelineConfig(seed=0)
     t0 = time.perf_counter()
     tokens_done = 0
@@ -111,7 +120,7 @@ def main(argv=None) -> dict:
     for step in range(start_step, args.steps):
         s0 = time.perf_counter()
         batch = to_device(make_batch(cfg, shape, pc, step), device)
-        params, state, loss = train_step(params, state, batch)
+        params, state, loss = step_fn(params, state, batch)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         step_s.append(time.perf_counter() - s0)
@@ -128,7 +137,7 @@ def main(argv=None) -> dict:
     print(f"done in {time.perf_counter() - t0:.1f}s; "
           f"checkpoints at {args.ckpt_dir} (latest step {ck.latest_step()})")
     return {"cfg": cfg, "losses": losses, "step_s": step_s,
-            "params": params, "state": state}
+            "params": params, "state": state, "step": step_fn}
 
 
 if __name__ == "__main__":

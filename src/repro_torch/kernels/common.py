@@ -70,6 +70,9 @@ def check_operands(what: str, *tensors: torch.Tensor) -> None:
 
 
 _LOGS = threading.local()     # the launch logs open on this thread
+_SHARED_LOGS: tuple = ()      # the launch logs open on every thread
+_SHARED_LOCK = threading.Lock()
+_N_OPEN = 0                   # launch logs open on any thread
 
 
 class LaunchCounter:
@@ -79,7 +82,9 @@ class LaunchCounter:
     count is taken under a lock (``n += 1`` alone is a read-modify-write
     that loses counts).  A launch made while this thread captures a CUDA
     graph (inside a capturing :class:`LaunchLog`) is not counted then:
-    the log adds it at each replay of the graph."""
+    the log adds it at each replay of the graph.  A log opened with
+    ``all_threads`` sees the launches of every thread: autograd runs a
+    CUDA backward (a remat recompute's kernels) on a thread of its own."""
 
     def __init__(self) -> None:
         self._lock = threading.Lock()
@@ -87,7 +92,7 @@ class LaunchCounter:
         self._by_key: dict = {}
 
     def add(self, key=None) -> None:
-        logs = getattr(_LOGS, "open", ())
+        logs = getattr(_LOGS, "open", ()) + _SHARED_LOGS
         for log in logs:
             log._record(self, key)
         if not any(log.capturing for log in logs):
@@ -123,21 +128,53 @@ class LaunchLog:
     recorded, not run, so it reaches no counter's total then;
     :meth:`replay` adds the recorded launches once, by key, and is called
     once per replay of the graph.  Without it (an eager warm-up) the
-    launches count as usual, and the log keeps a tally of its own."""
+    launches count as usual, and the log keeps a tally of its own.
 
-    def __init__(self, capturing: bool = False) -> None:
+    With ``all_threads`` the log takes the launches of every thread of the
+    process while it is open (a train step's capture, whose backward runs
+    on autograd's device thread); a log without it, this thread's only
+    (a serving slot's capture, beside executors that launch eagerly).
+    A capturing log on every thread must be the only launcher in the
+    process: another thread's eager launch would be counted into the
+    graph's replays instead of its own.  So it refuses to open while any
+    other log is open, and no log opens while it is open; an eager launch
+    on another thread without a log is not detected."""
+
+    def __init__(self, capturing: bool = False,
+                 all_threads: bool = False) -> None:
         self.capturing = capturing
+        self.all_threads = all_threads
         self._n: dict = {}          # (counter, key) -> launches
+        self._lock = threading.Lock()
 
     def __enter__(self) -> "LaunchLog":
-        _LOGS.open = (*getattr(_LOGS, "open", ()), self)
+        global _SHARED_LOGS, _N_OPEN
+        with _SHARED_LOCK:
+            if any(log.capturing for log in _SHARED_LOGS) or (
+                    self.capturing and self.all_threads and _N_OPEN):
+                raise RuntimeError("a capture that logs every thread's "
+                                   "launches must be the only launch log "
+                                   "open in the process")
+            _N_OPEN += 1
+            if self.all_threads:
+                _SHARED_LOGS = (*_SHARED_LOGS, self)
+        if not self.all_threads:
+            _LOGS.open = (*getattr(_LOGS, "open", ()), self)
         return self
 
     def __exit__(self, *exc) -> None:
-        _LOGS.open = tuple(log for log in _LOGS.open if log is not self)
+        global _SHARED_LOGS, _N_OPEN
+        with _SHARED_LOCK:
+            _N_OPEN -= 1
+            if self.all_threads:
+                _SHARED_LOGS = tuple(log for log in _SHARED_LOGS
+                                     if log is not self)
+        if not self.all_threads:
+            _LOGS.open = tuple(log for log in _LOGS.open if log is not self)
 
     def _record(self, counter: LaunchCounter, key) -> None:
-        self._n[(counter, key)] = self._n.get((counter, key), 0) + 1
+        with self._lock:
+            self._n[(counter, key)] = self._n.get((counter, key), 0) + 1
 
     def replay(self) -> None:
         for (counter, key), n in self._n.items():

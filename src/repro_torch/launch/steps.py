@@ -14,8 +14,10 @@ FSDP-sharded weight gathered where a layer reads it
 rules' batch and cache specs; every op then runs on each rank's shards,
 ``DTensor`` issuing the collectives.  Plain tensors met inside the step
 (positions, masks) count as replicated.  The metrics come back whole.
-The reference jits its step; the port's runs eagerly (a captured train
-step is queued in ROADMAP).
+The step itself is eager; on one card the launchers capture it as a
+CUDA graph and replay it (``launch/train_graphs.py``), the counterpart of
+the reference's jitted step.  The sharded step runs eagerly (a captured
+sharded step is queued in ROADMAP).
 
 ``make_prefill_step``, ``make_serve_step``, ``make_step_for_shape`` and
 ``dummy_args`` are the factories the dry-run traces

@@ -19,7 +19,13 @@ device.  Without it the full config trains at ``--shape``:
 ``--multi-pod`` in a world of another size raises and names the size it
 needs.  Every family trains, the encoder/decoder and VLM batches carrying
 the frames or patch embeddings ``make_batch`` draws, as device tensors
-beside the tokens.  Each step ends in a sync of the card, and its time
+beside the tokens.  On one card the step is captured
+(``launch/train_graphs.py``), as the reference jits it: the first step
+runs eagerly as the warm-up, the second captures the step on the
+parameters and state it is handed (after any ``--resume``) and every
+step from then on is one copy of the batch into the graph's buffers and
+one replay; a failed capture or replay raises.  The CPU and the sharded
+step run eagerly.  Each step ends in a sync of the card, and its time
 goes to the ``faasm_train_step_ms`` histogram and a ``train.step`` span.
 The full width on one card at a cut batch is ``examples/train_lm_torch.py``.
 """
@@ -37,6 +43,7 @@ from repro_torch.data import PipelineConfig, make_batch
 from repro_torch.kernels.common import resolve_device
 from repro_torch.distributed.sharding import ShardingRules
 from repro_torch.launch.mesh import make_production_mesh, production_shape
+from repro_torch.launch import train_graphs
 from repro_torch.launch.steps import make_train_step, place_params
 from repro_torch.models import ExecConfig, build_model
 from repro_torch.models.weights import trainable
@@ -80,8 +87,9 @@ def to_device(batch, device) -> dict:
 
 
 def main(argv: Optional[List[str]] = None) -> dict:
-    """Trains; returns the losses of the steps it ran and the last step's
-    parameters and optimizer state."""
+    """Trains; returns the losses of the steps it ran, the last step's
+    parameters and optimizer state, and the step it ran (``step``: on
+    one card a :class:`~repro_torch.launch.train_graphs.GraphedTrainStep`)."""
     args = parser().parse_args(argv)
     world, need = world_size(), math.prod(production_shape(args.multi_pod)[0])
     if args.multi_pod and world != need:
@@ -114,6 +122,8 @@ def main(argv: Optional[List[str]] = None) -> dict:
           f"{shape.name}, opt={args.optimizer}")
 
     step_fn = make_train_step(model, opt, shape, rules)
+    if rules is None:              # one device: the captured step on the card
+        step_fn = train_graphs.for_device(step_fn, device)
     params = trainable(model.init(
         torch.Generator(device=device).manual_seed(0), device))
     state = opt.init(params)
@@ -153,7 +163,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
     ck.save(args.steps, (params, state), blocking=True)
     print("done")
     return {"losses": [float(x) for x in losses], "params": params,
-            "state": state}
+            "state": state, "step": step_fn}
 
 
 if __name__ == "__main__":

@@ -10,11 +10,11 @@ fenced duplicates and sealed pushes refused, shed counts, retry budgets,
 breaker steering, and every replica converged after one repair pull.
 
 The port's sanitizer is its own (``repro_torch.analysis.sanitizer``):
-``tests/conftest.py`` drives the reference's, so the fixture below turns
-the port's on for ``sanitize``-marked tests (and under
-``FAASM_SANITIZE=1``) and fails a test on any report it did not take.
-The port's fault, telemetry and cost-model planes are disarmed after
-every test.
+``tests/conftest.py`` drives the reference's, so the fixtures of
+``tests/torch_twin_planes.py`` turn the port's on for ``sanitize``-marked
+tests (and under ``FAASM_SANITIZE=1``), fail a test on any report it did
+not take, and disarm the port's fault, telemetry and cost-model planes
+after every test.
 
 Where the port's ``state/local.py`` differs from the reference's on
 purpose, a twin says so in its docstring.  The storms and runtime
@@ -23,7 +23,6 @@ catch-up (``LocalTier._catch_up_locked``) moves a tracked replica in
 place where the reference full-pulls, and its buffer mutex keeps every
 HOGWILD add, so nothing the reference holds is loosened.
 """
-import os
 import threading
 import time
 
@@ -37,43 +36,9 @@ from repro_torch.core.chain import scatter_gather
 from repro_torch.state.ddo import VectorAsync
 from repro_torch.state.kv import GlobalTier
 from repro_torch.state.local import INT8_WIRE_MIN_BYTES, LocalTier
+from torch_twin_planes import port_planes_disarmed, port_sanitize  # noqa: F401
 
 KEY = "w"
-_SANITIZE_ENV = os.environ.get("FAASM_SANITIZE") == "1"
-
-
-@pytest.fixture(autouse=True)
-def _port_sanitize(request):
-    """The port's sanitizer over ``sanitize``-marked tests: on before the
-    test builds its tiers (locks are instrumented at construction), and
-    any report the test did not take fails it."""
-    from repro_torch.analysis import sanitizer
-    marked = request.node.get_closest_marker("sanitize") is not None
-    if not (_SANITIZE_ENV or marked):
-        yield
-        return
-    sanitizer.enable()
-    sanitizer.reset()
-    try:
-        yield
-        leftovers = sanitizer.take_reports()
-    finally:
-        sanitizer.disable()
-    if leftovers:
-        pytest.fail("repro_torch sanitizer reports:\n\n"
-                    + "\n\n".join(str(r) for r in leftovers), pytrace=False)
-
-
-@pytest.fixture(autouse=True)
-def _port_planes_disarmed():
-    """The port's fault, telemetry and cost-model planes never leak from
-    one test into the next (conftest disarms the reference's)."""
-    yield
-    from repro_torch import telemetry
-    from repro_torch.state import wire
-    faults.disarm()
-    telemetry.disable()
-    wire.disable_cost_model()
 
 
 def _global(gt, key=KEY):

@@ -26,18 +26,9 @@ if str(REPO) not in sys.path:
 
 from benchmarks import bench_coldstart as ref  # noqa: E402
 from benchmarks import bench_coldstart_torch as twin  # noqa: E402
+from torch_twin_planes import port_planes_disarmed  # noqa: E402,F401
 
 INT8_FRAME = (1 << 20) + (1 << 20) // 128 * 4   # 1 Mi codes + a scale a row
-
-
-@pytest.fixture(autouse=True)
-def _port_planes_disarmed():
-    yield
-    from repro_torch import faults, telemetry
-    from repro_torch.state import wire
-    faults.disarm()
-    telemetry.disable()
-    wire.disable_cost_model()
 
 
 def test_state_copies_equal_the_references():

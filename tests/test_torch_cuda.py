@@ -1492,6 +1492,68 @@ def test_checkpoint_round_trip_on_card(card, tmp_path):
         assert torch.equal(a, b)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_micro", [1, 2])
+@pytest.mark.parametrize("opt_name", ["sgd", "adamw"])
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "mamba2-130m",
+                                  "zamba2-1.2b", "whisper-tiny"])
+def test_captured_train_steps_equal_eager_steps_bitwise(card, arch, opt_name,
+                                                        n_micro):
+    """Three steps of the captured step (``launch/train_graphs.py``: the
+    eager warm-up, the capture and its replay, one more replay) from the
+    same weights, optimizer state and batches as three eager steps: each
+    step's loss, aux loss and gradient norm, every parameter and the
+    optimizer state bitwise; the kernels' launches (K5 and K8, by shape)
+    those of the eager steps exactly, one step's in the graph's log."""
+    import copy
+    from repro_torch.configs import smoke_shape
+    from repro_torch.data import PipelineConfig, make_batch
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train_graphs import GraphedTrainStep, written
+    from repro_torch.optim import SGD, AdamW, warmup_cosine
+    cfg, params, _ = _train_setup(card, "bfloat16", arch)
+    shape = smoke_shape("train")
+    batches = [{k: torch.from_numpy(v).to(card) for k, v in make_batch(
+        cfg, shape, PipelineConfig(seed=0), i).items()} for i in range(3)]
+    model = build_model(cfg, ExecConfig(loss_chunk=16, microbatches=n_micro))
+    sched = warmup_cosine(0.05, warmup=1, total=3)
+    opt = SGD(lr=sched, momentum=0.9) if opt_name == "sgd" else \
+        AdamW(lr=sched)
+    eager = make_train_step(model, opt, shape)
+    counters = (flash_ops.LAUNCHES, ssd_ops.LAUNCHES)
+
+    def run(step, p):
+        before = [c.by_key() for c in counters]
+        n = [c.value for c in counters]
+        state, out = opt.init(p), []
+        for b in batches:
+            p, state, m = step(p, state, b)
+            out.append({k: v.cpu() for k, v in m.items()})
+        torch.cuda.synchronize()
+        launches = [c.value - k for c, k in zip(counters, n)]
+        by_key = [{k: v - b.get(k, 0) for k, v in c.by_key().items()
+                   if v - b.get(k, 0)} for c, b in zip(counters, before)]
+        return out, [t.detach().cpu() for t in written(p, state)], launches, \
+            by_key
+
+    want = run(eager, copy.deepcopy(params))
+    graphed = GraphedTrainStep(eager, card)
+    got = run(graphed, params)
+    assert graphed.replays == 2
+    for a, b in zip(got[0], want[0]):
+        assert set(a) == {"loss", "aux_loss", "grad_norm"}
+        for k in a:
+            assert torch.equal(a[k], b[k]), k
+    for a, b in zip(got[1], want[1]):
+        assert torch.equal(a, b)
+    assert got[2] == want[2] and got[3] == want[3]
+    assert want[2][0] + want[2][1] > 0
+    assert [3 * graphed.launches.count(c) for c in counters] == want[2]
+    assert [graphed.warmup_launches.count(c) for c in counters] == \
+        [graphed.launches.count(c) for c in counters]
+    graphed.close()
+
+
 REPO = Path(__file__).resolve().parents[1]
 
 

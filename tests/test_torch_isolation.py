@@ -47,6 +47,7 @@ def test_port_file_imports_no_jax_or_repro(path):
 def test_importing_the_launcher_loads_no_jax_or_repro():
     code = ("import sys, repro_torch.launch.serve, repro_torch.models.weights\n"
             "import repro_torch.launch.train, repro_torch.launch.steps\n"
+            "import repro_torch.launch.train_graphs\n"
             "import repro_torch.launch.dryrun, repro_torch.launch.mesh\n"
             "import repro_torch.distributed.elastic\n"
             "import repro_torch.distributed.pipeline\n"

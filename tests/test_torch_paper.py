@@ -41,17 +41,10 @@ import sgd_hogwild_torch  # noqa: E402
 from repro.core import FaasmRuntime as RefRuntime  # noqa: E402
 from repro_torch.core import FaasmRuntime as PortRuntime  # noqa: E402
 from repro_torch.data import make_sparse_dataset  # noqa: E402
+from torch_twin_planes import port_planes_disarmed  # noqa: E402,F401
 
 CPU = ["--device", "cpu"]
 SNAPSHOT_EXTRA = len("repro_torch") - len("repro")   # bytes per snapshot
-
-
-@pytest.fixture(autouse=True)
-def _port_planes_disarmed():
-    yield
-    from repro_torch import faults, telemetry
-    faults.disarm()
-    telemetry.disable()
 
 
 def _recording(base, record: dict, **force):

@@ -22,6 +22,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+from torch_twin_planes import port_planes_disarmed  # noqa: F401
 
 PKGS = ("repro", "repro_torch")
 REPO = Path(__file__).resolve().parents[1]
@@ -49,18 +50,6 @@ class Pkg:
 @pytest.fixture(params=PKGS)
 def pkg(request):
     return Pkg(request.param)
-
-
-@pytest.fixture(autouse=True)
-def _port_planes_disarmed():
-    """The port's own fault, telemetry and cost-model planes never leak
-    from one test into the next (conftest disarms the reference's)."""
-    yield
-    from repro_torch import faults, telemetry
-    from repro_torch.state import wire
-    faults.disarm()
-    telemetry.disable()
-    wire.disable_cost_model()
 
 
 def _host(x) -> np.ndarray:

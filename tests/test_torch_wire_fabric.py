@@ -28,16 +28,9 @@ from repro_torch.state.kv import GlobalTier as _GlobalTier
 from repro_torch.state.local import INT8_WIRE_MIN_BYTES, LocalTier
 from repro_torch.state.wire import (WireCostModel, WireFrame, WirePolicy,
                                     available_wires, get_codec)
+from torch_twin_planes import port_planes_disarmed  # noqa: F401
 
 BACKENDS = ("auto", "torch")
-
-
-@pytest.fixture(autouse=True)
-def _port_planes_disarmed():
-    """The port's cost model never leaks from one test into the next
-    (conftest disarms the reference's)."""
-    yield
-    wire_mod.disable_cost_model()
 
 
 def GlobalTier(**kw):
