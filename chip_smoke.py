@@ -56,7 +56,7 @@ Phases, each fatal on failure:
    argmax (one forward per prompt, as the fan-out runs it) in at least
    90% of the requests and the kernel path's eager forward bitwise in
    all; req/s, p50/p99, the per-call copy (CUDA events on the slot's
-   stream) and the capture time are logged, beside a 16-request wave of
+   stream) and the capture time are logged, beside a 4-request wave of
    the eager fan-out (pageable leaves, the forward op by op) and one
    graphed call alone; then the Fig. 7 twin
    (``examples/inference_serving_torch.py``) at full width, 12 requests,
@@ -182,8 +182,8 @@ Phases, each fatal on failure:
    ``make_train_step`` from the same weights, optimizer state and batch:
    the loss, aux loss, gradient norm, every updated parameter and the
    optimizer state bitwise, and one step's launches in the graph's log,
-   exact; then the main path, ``examples/train_lm_torch.py`` for 8 steps
-   through the captured step (step 0 eager, then one replay a step) with
+   exact; then the main path, ``examples/train_lm_torch.py`` for 4 steps
+   (8 before PR 29's depth cuts) through the captured step (step 0 eager, then one replay a step) with
    every counter zeroed just before: K5 exactly twice per layer and step
    (the forward and the remat recompute), per replay too, no other
    kernel, the loss finite at every step,
@@ -199,14 +199,15 @@ Phases, each fatal on failure:
    training forward beside SDPA's forward, and the plain flash backward
    beside SDPA's backward;
 16. training, mamba2-130m and then zamba2-1.2b at full width, as phase
-   15: ``SSDScanFn`` (K8's forward, the plain chunked scan's backward) at
+   15 (the eager step timed, not profiled, and no split step):
+   ``SSDScanFn`` (K8's forward, the plain chunked scan's backward) at
    one Mamba layer's training shape, y and the final state against
    ``ssd_chunked`` and every operand's gradient from one backward against
    autograd through it, at the models' decays (3e-2); zamba2's shared
    block also gets phase 15's K5 parity at H 32; the same holds, kernel
    path against plain path (zamba2 in two microbatches of 2 rows on both
    paths: the plain attention's scores at 32 heads and 4 rows do not fit
-   beside its backward); the main path for 8 steps with K8 exactly twice
+   beside its backward); the main path for 4 steps with K8 exactly twice
    per Mamba layer and step (48 and 76) and, for zamba2, K5 twice per
    shared-block application (14); the same reports; K8 timed at the
    training shape, the plain SSD backward's time per layer, and zamba2's
@@ -230,18 +231,21 @@ Phases, each fatal on failure:
    these shapes beside SDPA; the warm decode loop; the weights widened to
    f32, as phase 14;
 18. training, the other families: whisper-tiny, internvl2-2b and
-   qwen3-4b at full width, as phase 15, one model on the card at a time:
+   qwen3-4b at full width (qwen3-4b on its first 4 of 36 layers: phase
+   20 trains granite-3-8b's identical attention shape at full depth), as
+   phase 15 (the eager step timed, not profiled, and no split step), one
+   model on the card at a time:
    K5's statistics and ``FlashAttentionFn``'s gradients at every
    attention shape the model trains (whisper: the encoder's 1,500 x
    1,500 without a mask, the decoder's causal 4,096 and the
    cross-attention of 4,096 queries over 1,500 frames; internvl2-2b's
-   4,096 positions at H 16 over K 8, D 128; qwen3-4b at H 32 over K 8),
-   and one layer's at starcoder2-7b's H 36 over K 4; the kernel-path
-   holds with the frames or patch embeddings in the batch (qwen3-4b in
-   four microbatches of one row on both paths); the main path, 8 steps
-   (qwen3-4b 4), K5 exactly 24, 48 and 72 times a step, by shape too
-   (whisper 8 at each of its three); the same reports, with K5 and the
-   plain flash backward timed at every one of these shapes beside SDPA.
+   4,096 positions at H 16 over K 8, D 128; qwen3-4b at H 32 over K 8);
+   the kernel-path holds with the frames or patch embeddings in the batch
+   (qwen3-4b in two microbatches of two rows on both paths); the main
+   path, 4 steps, K5 exactly 24, 48 and 8 times a step, by shape too
+   (whisper 8 at each of its three); the same reports, with K5
+   and the plain flash backward timed at every one of these shapes beside
+   SDPA.
 19. mesh: (a) the dry-run (``repro_torch.launch.dryrun``) of
    qwen1.5-0.5b's train_4k on the 16x16 and 2x16x16 production meshes
    and its decode_32k on 16x16, each in a process of its own over torch's
@@ -267,6 +271,24 @@ Phases, each fatal on failure:
    A single card checks multi-device code on a 1-device mesh only; the
    production meshes exist here only as a fake group, and multi-rank
    numerics are held on the CPU (``tests/test_torch_distributed.py``).
+20. training, granite-3-8b and starcoder2-7b at full width and depth (8.2
+   B and 7.4 B parameters; run before phase 19), after qwen1.5-0.5b's
+   loss over one fixed batch (30 steps of the example's captured step,
+   constant lr 0.05: every loss finite, the last below the first, the
+   drop printed beside the reference test's 0.5): for each model, K5's
+   statistics and ``FlashAttentionFn``'s gradients at its attention shape
+   (granite-3-8b's H 32 over K 8 is qwen3-4b's; starcoder2-7b's H 36 over
+   K 4, G 9); the kernel path against the plain path in bf16 at full
+   depth (four microbatches of one row, summed in bf16 on both paths: an
+   f32 accumulator leaves no room for the plain attention), the loss
+   within 3e-2 and every leaf's relative L2 reported; the f32 witness at
+   full width on the first ``F32_HOLD_LAYERS`` (4) layers, loss 1e-4 and
+   each leaf 1e-3 (at full depth it would take ~98 and ~89 GB); the
+   captured step bitwise against the eager step, K5 exactly 80 and 64 a
+   replay; the main path, 4 steps, as phase 15 (the eager step timed,
+   not profiled), with peak memory allocated and reserved beside the
+   card's; K5 and the plain flash backward timed at starcoder2-7b's shape
+   (granite-3-8b's row is qwen3-4b's).
 
 Phase 2 also holds K8 against its plain version (and the sequential
 oracle) at both models' prefill shapes, in f32 at the reference's 1e-4
@@ -304,7 +326,8 @@ call launches, and stops; ``python3 chip_smoke.py ssd`` holds K8 at every
 phase-2 case, times it at both SSM prefill shapes with the time of each of
 its kernels, and stops.  ``python3 chip_smoke.py train`` builds, holds the attention kernels,
 runs phases 15 and 16 and stops; ``python3 chip_smoke.py trainfam``
-the same for phase 18, printing its kernels line.  ``python3 chip_smoke.py gqa``
+the same for phase 18, and ``python3 chip_smoke.py traingqa`` for phase
+20, each printing its kernels line.  ``python3 chip_smoke.py gqa``
 builds, holds the attention kernels and runs phase 14 alone; ``python3
 chip_smoke.py mesh`` the same for phase 19;
 ``python3 chip_smoke.py families`` the same for phase 17.  ``python3
@@ -364,7 +387,7 @@ SSD_TOL = {"float32": 1e-4, "bfloat16": 3e-2}   # the reference's ssd, bf16
 LOGIT_TOL = 5e-2                            # bf16 model tolerance (atol = rtol)
 MIN_ARGMAX_AGREEMENT = 0.9                  # bf16 near-ties may flip a few
 FANOUT_REQUESTS, FANOUT_WARM = 64, 8       # the wave; the launcher's warm-up
-FANOUT_EAGER = 8                            # the eager wave beside it
+FANOUT_EAGER = 4                            # the eager wave beside it
 FIG7_REQUESTS = 12                          # the Fig. 7 twin's requests
 # the paper phase: Fig. 6 at RCV1's feature count (data/sparse.py imitates
 # RCV1) and 4,096 examples; Fig. 8 at n 2,048
@@ -1514,13 +1537,14 @@ def _times(lat_ms) -> str:
             f"{np.percentile(lat, 99):.1f}ms")
 
 
-def eager_fanout(res, leaves, payloads) -> dict:
+def eager_fanout(res, leaves, payloads, n: int) -> dict:
     """The fan-out as it ran before its forward was captured, beside the
     graphed one: each call binds its parameters from pageable host leaves
     (``serve.bind_params``) and runs the forward op by op, on a stream of
     its own (so that CUDA events time its copy and forward alone), then
     pushes its token to serve/stats over the int8 wire.  FANOUT_WARM calls
-    first, then ``payloads`` timed as one wave."""
+    first (one an executor), then the first ``n`` of ``payloads`` timed as
+    one wave."""
     import numpy as np
     import torch
     from repro_torch.core import FaasmRuntime, FunctionDef
@@ -1562,6 +1586,7 @@ def eager_fanout(res, leaves, payloads) -> dict:
         if rt.wait_all(warm, timeout=300) != [0] * FANOUT_WARM:
             raise AssertionError("eager fan-out: a warm-up call failed")
         del times[:]
+        payloads = payloads[:n]
         t0 = time.perf_counter()
         cids = rt.invoke_many("infer", payloads, state_hint=hint)
         rcs = rt.wait_all(cids, timeout=600)
@@ -1689,7 +1714,7 @@ def phase_fanout(arch: str) -> tuple:
         f"state_push_mb {r['state_push_mb']:.3f}")
     # the same prompts through the eager fan-out, on a short wave
     leaves = serve.host_leaves(res["params"])
-    e = eager_fanout(res, leaves, payloads[:FANOUT_EAGER])
+    e = eager_fanout(res, leaves, payloads, FANOUT_EAGER)
     same = sum(a == b for a, b in zip(e["tokens"], want_eager))
     log(f"  eager ({FANOUT_EAGER} requests, pageable leaves): "
         f"{e['rps']:.2f} req/s, {_times(e['lat_ms'])}; per call parameter "
@@ -3338,17 +3363,31 @@ def phase_ssd_ab() -> None:
 # train_4k's sequence, batch 4
 # ---------------------------------------------------------------------------
 
-TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS, TRAIN_WARM = 4096, 4, 8, 2
-# each training architecture: (arch, the main path's steps, architectures
-# whose K5 training parity runs beside its own and which train no further)
-TRAIN_ARCHS = tuple((a, TRAIN_STEPS, ()) for a in (ARCH,) + SSM_ARCHS)
-# phase 18: the other families at full width, and the largest GQA decoder
-# in 4 steps (inside the run's time budget), with one layer's parity at
-# starcoder2-7b's grouping (H 36 over K 4, D 128): granite-3-8b's G 4 is
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS, TRAIN_WARM = 4096, 4, 4, 2
+# each training architecture: (arch, the main path's steps, its layers: 0
+# for the config's own)
+TRAIN_ARCHS = tuple((a, TRAIN_STEPS, 0) for a in (ARCH,) + SSM_ARCHS)
+# phase 18: the other families at full width and depth, and qwen3-4b at
+# full width on its first 4 of 36 layers: phase 20 trains granite-3-8b at
+# full depth on the same attention shape (H 32 over K 8, D 128), so the
+# cut buys phase 20's time inside the run's 1,200 s
+FAMILY_TRAIN_ARCHS = (("whisper-tiny", TRAIN_STEPS, 0),
+                      ("internvl2-2b", TRAIN_STEPS, 0),
+                      ("qwen3-4b", TRAIN_STEPS, 4))
+# phase 20: the two largest GQA decoders at full width and depth, 4 steps
+# each: (arch, steps, the architecture whose K5 training row times the
+# same shape, or None); granite-3-8b's attention (H 32 over K 8, D 128) is
 # qwen3-4b's
-FAMILY_TRAIN_ARCHS = (("whisper-tiny", TRAIN_STEPS, ()),
-                      ("internvl2-2b", TRAIN_STEPS, ()),
-                      ("qwen3-4b", 4, ("starcoder2-7b",)))
+GQA_TRAIN_ARCHS = (("granite-3-8b", 4, "qwen3-4b"),
+                   ("starcoder2-7b", 4, None))
+# their f32 witness runs at full width on the first F32_HOLD_LAYERS
+# layers: at full depth its f32 weights, accumulator and one microbatch's
+# gradients (12 B a parameter) would take ~98 and ~89 GB of the card's 80
+F32_HOLD_LAYERS = 4
+# the loss over one fixed batch (the reference's test_train_lm_loss_
+# decreases at full width): qwen1.5-0.5b, the example's captured step,
+# make_batch's step 0 every step, a constant SGD learning rate
+FIXED_BATCH_STEPS, FIXED_BATCH_LR = 30, 0.05
 TRAIN_LOSS_TOL = {"float32": 1e-4, "bfloat16": 3e-2}   # abs + rel
 TRAIN_GRAD_RL2 = 1e-3        # each f32 gradient leaf, relative L2
 # K5's output and FlashAttentionFn's gradients at a training shape (bf16),
@@ -3510,26 +3549,54 @@ def _train_batch(cfg, step: int) -> dict:
                      "cuda")
 
 
-def _loss_and_grads(model, params, batch, n_micro: int = 1):
+def _loss_and_grads(model, params, batch, n_micro: int = 1,
+                    accum_dtype: str = "float32"):
     """The loss and every gradient leaf, in parameter order, of one step
     over ``batch`` in ``n_micro`` microbatches (``accumulate_grads``, as
-    ``make_train_step`` takes them)."""
+    ``make_train_step`` takes them, summed in ``accum_dtype``)."""
+    import torch
     from repro_torch.optim.grad_accum import accumulate_grads
-    grads, loss, _ = accumulate_grads(model.loss, params, batch, n_micro)
+    grads, loss, _ = accumulate_grads(model.loss, params, batch, n_micro,
+                                      accum_dtype=getattr(torch, accum_dtype))
     return loss.detach(), list(grads.values())
 
 
-def _hold_microbatches(cfg) -> int:
-    """Microbatches of the kernel-vs-plain hold: the plain path's
-    attention makes (B, H, S, S) f32 scores and keeps three of them for
-    its backward, 4.3 GB each at qwen1.5-0.5b's 16 heads and 4 rows;
-    zamba2-1.2b's 32 heads take two microbatches of 2 rows on both paths
-    (at 4 rows the plain path wants more than the card's 80 GB).  Past
-    3 B parameters the f32 weights and two sets of gradient leaves take
-    ~12 bytes a parameter, 48 GB at qwen3-4b's 4.0 B, so the scores get
-    one row at a time."""
+def _hold_microbatches(cfg) -> tuple:
+    """(microbatches, accumulator dtype) of the kernel-vs-plain hold.  The
+    plain path's attention makes (B, H, S, S) f32 scores and keeps three
+    of them for its backward, 4.3 GB each at qwen1.5-0.5b's 16 heads and 4
+    rows; zamba2-1.2b's 32 heads take two microbatches of 2 rows on both
+    paths (at 4 rows the plain path wants more than the card's 80 GB).
+    Past 3 B parameters the scores get one row at a time: the f32 hold
+    keeps f32 weights, the f32 accumulator and one microbatch's f32
+    gradients (12 B a parameter, 48 GB at qwen3-4b's 4.0 B), the bf16
+    hold bf16 weights, the accumulator and one microbatch's bf16 gradients
+    (8 B a parameter with an f32 accumulator: the bf16 gradients are added
+    into it without an f32 copy).  Past 6 B parameters (granite-3-8b's
+    8.2 B, starcoder2-7b's 7.4 B) the bf16 hold sums its microbatches in
+    bf16 on both paths (6 B a parameter, 49 GB at 8.2 B; with an f32
+    accumulator, 65 GB and the plain attention's ~13 GB of one layer's
+    backward would leave no room on the card), and the f32 hold runs at a
+    cut depth (``F32_HOLD_LAYERS``)."""
     n = max(1, cfg.n_heads * TRAIN_BATCH // 64)
-    return TRAIN_BATCH if cfg.param_count() > 3e9 else n
+    params = cfg.param_count()
+    return (TRAIN_BATCH if params > 3e9 else n,
+            "bfloat16" if params > 6e9 else "float32")
+
+
+def _first_layers(base, cfg):
+    """The parameters of ``cfg`` (``base``'s config with fewer layers) in
+    f32 on ``base``'s device, over ``base``'s leaves of the same names: the
+    embedding, its first ``cfg.n_layers`` layers, the final norm and the
+    unembedding, widened from ``base``'s dtype."""
+    import torch
+    f32 = cfg.with_overrides(dtype="float32", param_dtype="float32")
+    out = type(base)(f32, device="meta").to_empty(
+        device=next(base.parameters()).device)
+    with torch.no_grad():
+        for n, p in out.named_parameters():
+            p.copy_(base.get_parameter(n))
+    return out
 
 
 def _zero_grad_leaves(cfg, names) -> dict:
@@ -3542,16 +3609,19 @@ def _zero_grad_leaves(cfg, names) -> dict:
     return {n: n[:-2] + "bq" for n in names if n.endswith(".bk")}
 
 
-def phase_train_holds(cfg) -> None:
+def phase_train_holds(cfg, f32_layers: int = 0) -> None:
     """One training step of ``cfg`` at full width (the example's
-    execution config: remat full, loss chunks of 128; the microbatches of
-    ``_hold_microbatches``) on the kernel path and on the plain path
-    (``backend="torch"``), on the same weights and batch: with the
-    weights widened to f32 the losses within 1e-4 and
+    execution config: remat full, loss chunks of 128; the microbatches and
+    accumulator of ``_hold_microbatches``) on the kernel path and on the
+    plain path (``backend="torch"``), on the same weights and batch: with
+    the weights widened to f32 the losses within 1e-4 and
     every gradient leaf within 1e-3 relative L2 (a leaf whose gradient is
     zero, ``_zero_grad_leaves``, within 1e-3 of its sibling's norm on both
     paths); in bf16 the losses within 3e-2 and each leaf's relative L2
-    reported.  The batch carries the
+    reported.  With ``f32_layers`` the f32 hold (the witness) runs on the
+    first ``f32_layers`` layers of the same weights, every width, head
+    count, bias and norm of the config kept, and the bf16 hold at full
+    depth.  The batch carries the
     frames or patch embeddings ``make_batch`` draws for the family.  The
     kernel path's leaves wait in host memory while the plain path runs,
     and come back one at a time for the comparison."""
@@ -3561,28 +3631,40 @@ def phase_train_holds(cfg) -> None:
     batch = _train_batch(cfg, 0)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     base = build_model(cfg).init(gen)
-    n_micro = _hold_microbatches(cfg)
+    n_micro, accum = _hold_microbatches(cfg)
     for dtype in ("float32", "bfloat16"):
-        dcfg = cfg.with_overrides(dtype=dtype, param_dtype=dtype)
-        params = trainable(base.to(getattr(torch, dtype)) if dtype ==
-                           "float32" else base)
+        hcfg = cfg.with_overrides(n_layers=f32_layers) if \
+            f32_layers and dtype == "float32" else cfg
+        dcfg = hcfg.with_overrides(dtype=dtype, param_dtype=dtype)
+        if hcfg is not cfg:
+            params = trainable(_first_layers(base, hcfg))
+        else:
+            params = trainable(base.to(getattr(torch, dtype)) if dtype ==
+                               "float32" else base)
+        acc = accum if dtype == "bfloat16" else "float32"
+        depth = (f"{hcfg.n_layers} of {cfg.n_layers} layers: at full depth "
+                 f"the f32 weights, accumulator and one microbatch's "
+                 f"gradients would take {12 * cfg.param_count() / 1e9:.0f} "
+                 f"GB" if hcfg is not cfg else f"{cfg.n_layers} layers")
         out = {}
         for backend in ("auto", "torch"):
             model = build_model(dcfg, ExecConfig(
                 backend=backend, loss_chunk=min(TRAIN_SEQ, 128)))
             t0 = time.perf_counter()
-            loss, grads = _loss_and_grads(model, params, batch, n_micro)
+            loss, grads = _loss_and_grads(model, params, batch, n_micro, acc)
             if backend == "auto":
                 finite = all(bool(torch.isfinite(g).all()) for g in grads)
                 grads = [g.cpu() for g in grads]
             out[backend] = loss, grads
             del grads
             torch.cuda.synchronize()
-            log(f"  train step {cfg.name} {dtype} {backend}: loss "
+            log(f"  train step {cfg.name} {dtype} {backend} ({depth}): loss "
                 f"{float(out[backend][0]):.6f} in "
                 f"{time.perf_counter() - t0:.2f}s ({n_micro} microbatch"
                 f"{'es' if n_micro > 1 else ''} of "
-                f"{TRAIN_BATCH // n_micro} rows)")
+                f"{TRAIN_BATCH // n_micro} rows, summed in {acc}); peak "
+                f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+            torch.cuda.reset_peak_memory_stats()
             gc.collect()
             torch.cuda.empty_cache()
         (lk, gk), (lp, gp) = out["auto"], out["torch"]
@@ -3599,7 +3681,8 @@ def phase_train_holds(cfg) -> None:
               / float(gp[zero[n]].float().norm().clamp_min(1e-30))
               for n in zero}
         worst = max(rl2, key=rl2.get)
-        log(f"train hold {cfg.name} {dtype}: kernel path vs plain path, loss "
+        log(f"train hold {cfg.name} {dtype} ({depth}): kernel path vs "
+            f"plain path, loss "
             f"{float(lk):.6f} vs {float(lp):.6f} (|d| "
             f"{abs(float(lk) - float(lp)):.3e}, tol {tol:g} abs + rel); "
             f"gradient leaves' relative L2: max {rl2[worst]:.3e} ({worst}), "
@@ -3623,8 +3706,9 @@ def phase_train_holds(cfg) -> None:
             del params
             gc.collect()
             torch.cuda.empty_cache()
-            base = build_model(cfg).init(
-                torch.Generator(device="cuda").manual_seed(SEED))
+            if hcfg is cfg:            # the weights were widened in place
+                base = build_model(cfg).init(
+                    torch.Generator(device="cuda").manual_seed(SEED))
     del base
     gc.collect()
     torch.cuda.empty_cache()
@@ -3646,8 +3730,10 @@ def phase_train_graph_hold(cfg) -> None:
     (the captured step's warm-up, on its capture stream) and one replay
     of the captured step give the same loss, aux loss, gradient norm,
     every updated parameter and the optimizer state, bitwise.  The start
-    and the eager results wait in host memory (no second parameter set on
-    the card); the start is put back in place before the capture.  The
+    waits in host memory and is put back in place before the capture; the
+    eager results wait on the card (since the update holds no f32 copy of
+    the model, granite-3-8b's weights, a second set and the graph's pool
+    take ~57 GB), where the replay's are compared with them.  The
     graph's launch log holds one step's K5 and K8 launches exactly (by
     shape too), as many as the eager step counted, and the replay adds
     them to the counters."""
@@ -3675,8 +3761,8 @@ def phase_train_graph_hold(cfg) -> None:
     p, s, m = graphed(params, state, batch)          # the eager warm-up
     torch.cuda.synchronize()
     eager = (read_launches(), flash_ops.LAUNCHES.by_key())
-    eager_m = {k: v.cpu() for k, v in m.items()}
-    eager_t = [t.detach().cpu() for t in written(p, s)]
+    eager_m = {k: v.clone() for k, v in m.items()}
+    eager_t = [t.detach().clone() for t in written(p, s)]
     del p, s, m
     with torch.no_grad():
         for t, h in zip(written(params, state), start):
@@ -3687,9 +3773,9 @@ def phase_train_graph_hold(cfg) -> None:
     torch.cuda.synchronize()
     replayed = (read_launches(), flash_ops.LAUNCHES.by_key())
     log_launches = _log_launches(graphed.launches, counters)
-    same_m = {k: torch.equal(v.cpu(), eager_m[k]) for k, v in m.items()}
+    same_m = {k: torch.equal(v, eager_m[k]) for k, v in m.items()}
     bad = [i for i, (t, h) in enumerate(zip(written(p, s), eager_t))
-           if not torch.equal(t.detach().cpu(), h)]
+           if not torch.equal(t.detach(), h)]
     n_leaves = len(eager_t)
     del eager_t
     log(f"  captured step hold {cfg.name}: one replay against one eager step "
@@ -3797,7 +3883,7 @@ def _profiled_step(fn) -> tuple:
     return busy_ms, n, ms, events
 
 
-def phase_train(smi: str, cfg, steps: int) -> tuple:
+def phase_train(smi: str, cfg, steps: int, light: bool = False) -> tuple:
     """The training main path: ``examples/train_lm_torch.py`` at full width
     (``cfg``'s architecture, random weights from the seed, train_4k's
     sequence of 4,096 at batch 4, SGD with warmup_cosine(0.05), remat
@@ -3810,8 +3896,8 @@ def phase_train(smi: str, cfg, steps: int) -> tuple:
     one more step (the batch's copy and a replay) is timed between CUDA
     events and one is profiled, also between events: its device time over
     its own event time is a busy share of one run, which a record the
-    profiler lost can only lower.  The trained weights wait on the host,
-    and the graph is freed.  The loss
+    profiler lost can only lower.  A copy of the trained weights waits on
+    the card, and the graph is freed.  The loss
     must be finite at every step and every weight matrix (the embedding,
     attention, MLP and Mamba leaves of two or more axes) must have moved
     over the example's steps.  A leaf whose every element's f32 step
@@ -3823,11 +3909,15 @@ def phase_train(smi: str, cfg, steps: int) -> tuple:
     printed against half an ulp.  Then the step that was captured
     (``GraphedTrainStep.step``) runs eagerly, once between CUDA events
     and once profiled the same way, and one step of the same work with
-    CUDA events around its forward, backward and update.
+    CUDA events around its forward, backward and update (``light``, as
+    phases 16, 18 and 20 run it: the eager step timed, not profiled, and
+    no split step).  A run that does not fit the card raises with its
+    peak.
     Returns (the config, the run's launches, K5's by shape)."""
     import shutil
     import tempfile
     import torch
+    from repro_torch.configs import get_config
     from repro_torch.models import ExecConfig, build_model
     from repro_torch.optim import SGD, warmup_cosine
     from repro_torch.launch.train_graphs import GraphedTrainStep
@@ -3835,26 +3925,40 @@ def phase_train(smi: str, cfg, steps: int) -> tuple:
     import train_lm_torch as twin
     from repro_torch.kernels.flash_attention import ops as flash_ops
     arch = cfg.name
-    log(f"train: {arch} full width via examples/train_lm_torch.py, bf16, "
-        f"batch {TRAIN_BATCH} x seq {TRAIN_SEQ}, {steps} steps")
+    log(f"train: {arch} full width, {cfg.n_layers} layers, via "
+        f"examples/train_lm_torch.py, bf16, batch {TRAIN_BATCH} x seq "
+        f"{TRAIN_SEQ}, {steps} steps")
     ckpt_dir = tempfile.mkdtemp(prefix="train_lm_torch_")
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     base_mem = torch.cuda.memory_allocated()
+    card_gb = torch.cuda.get_device_properties(0).total_memory / 1e9
+    depth = [] if cfg.n_layers == get_config(arch).n_layers else \
+        ["--layers", str(cfg.n_layers)]
     reset_launches()
     try:
         res = twin.main(["--arch", arch, "--seq", str(TRAIN_SEQ), "--batch",
                          str(TRAIN_BATCH), "--steps", str(steps),
                          "--lr", "0.05", "--ckpt-every", "0", "--ckpt-dir",
-                         ckpt_dir, "--device", "cuda"])
+                         ckpt_dir, "--device", "cuda"] + depth)
+    except torch.cuda.OutOfMemoryError as e:
+        raise AssertionError(
+            f"train {arch}: does not fit the card: peak "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB allocated, "
+            f"{torch.cuda.max_memory_reserved() / 1e9:.2f} GB reserved of "
+            f"{card_gb:.2f} GB") from e
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
     launches = read_launches()
     by_shape = flash_ops.LAUNCHES.by_key()
     peak_gb = (torch.cuda.max_memory_allocated() - base_mem) / 1e9
+    peak_reserved_gb = torch.cuda.max_memory_reserved() / 1e9
     held_gb = torch.cuda.memory_reserved() / 1e9
-    cfg, params, state = res["cfg"], res["params"], res["state"]
+    if res["cfg"].n_layers != cfg.n_layers:
+        raise AssertionError(f"the example trained {res['cfg'].n_layers} "
+                             f"layers, not {cfg.n_layers}")
+    params, state = res["params"], res["state"]
     graphed = res["step"]
     want, want_shape = _train_launches(cfg, steps)
     one, one_shape = _train_launches(cfg, 1)
@@ -3877,9 +3981,9 @@ def phase_train(smi: str, cfg, steps: int) -> tuple:
                              f"{want}, {want_shape}, ({one}, {one_shape})")
     # the example's graph, still held: one more step (the batch's copy and
     # a replay) between CUDA events, then one under the profiler, also
-    # between events, for a busy share of one run; the trained weights
-    # wait on the host for the check below
-    trained = [p.detach().cpu() for p in params.parameters()]
+    # between events, for a busy share of one run; a copy of the trained
+    # weights waits for the check below
+    trained = [p.detach().clone() for p in params.parameters()]
     batch = _train_batch(cfg, steps)
     g_ms, host_ms = _event_ms(lambda: graphed(params, state, batch))
     g_busy, g_n, g_prof_ms, _ = _profiled_step(
@@ -3898,7 +4002,7 @@ def phase_train(smi: str, cfg, steps: int) -> tuple:
         torch.Generator(device="cuda").manual_seed(0))
     names = [n for n, _ in params.named_parameters()]
     same = [n for n, a, b in zip(names, trained, init.parameters())
-            if torch.equal(a.to(b.device), b)]
+            if torch.equal(a, b)]
     n_leaves = len(trained)
     del init, trained
     stuck = [n for n in same if params.get_parameter(n).ndim >= 2]
@@ -3919,8 +4023,9 @@ def phase_train(smi: str, cfg, steps: int) -> tuple:
         f"{[round(x, 2) for x in ms]}, mean {mean_s * 1e3:.2f}; "
         f"{tok / mean_s:.1f} tokens/s; train_mfu {flops / mean_s / BF16_FLOP_PER_S:.4f} "
         f"({flops / 1e12:.2f} model TFLOP a step over 989 TFLOP/s); peak "
-        f"memory {peak_gb:.2f} GB above the {base_mem / 1e9:.2f} GB held "
-        f"before; {smi}")
+        f"memory {peak_gb:.2f} GB allocated above the {base_mem / 1e9:.2f} "
+        f"GB held before, {peak_reserved_gb:.2f} GB reserved, of the card's "
+        f"{card_gb:.2f} GB; {smi}")
     MEASURED[arch] = {"step_ms": mean_s * 1e3, "peak_gb": peak_gb,
                       "model_flops": flops}
     model = build_model(cfg, ExecConfig(loss_chunk=min(TRAIN_SEQ, 128)))
@@ -3966,8 +4071,13 @@ def phase_train(smi: str, cfg, steps: int) -> tuple:
     torch.cuda.reset_peak_memory_stats()
     e_ms, _ = _event_ms(lambda: eager_step(params, state, batch))
     eager_gb = torch.cuda.max_memory_allocated() / 1e9
-    e_busy, e_n, e_prof_ms, events = _profiled_step(
-        lambda: eager_step(params, state, batch))
+    eager_reserved_gb = torch.cuda.max_memory_reserved() / 1e9
+    e_busy, events = "not profiled (phases 16, 18, 20)", []
+    if not light:
+        e_busy, e_n, e_prof_ms, events = _profiled_step(
+            lambda: eager_step(params, state, batch))
+        e_busy = (f"{e_busy:.1f} of {e_prof_ms:.1f}ms = "
+                  f"{100 * e_busy / e_prof_ms:.1f}% ({e_n} records)")
     log(f"train {arch} captured vs eager step (CUDA events, one step each, "
         f"B {TRAIN_BATCH} S {TRAIN_SEQ}, the example's step function both): "
         f"captured {g_ms:.2f}ms (the batch's copy and one replay; the "
@@ -3975,25 +4085,26 @@ def phase_train(smi: str, cfg, steps: int) -> tuple:
         f"captured/eager {g_ms / e_ms:.4f}; device busy in one profiled "
         f"step over its own CUDA-event ms: captured {g_busy:.1f} of "
         f"{g_prof_ms:.1f}ms = {100 * g_busy / g_prof_ms:.1f}% ({g_n} "
-        f"records with the batch's {n_copies} copies), eager {e_busy:.1f} of "
-        f"{e_prof_ms:.1f}ms = {100 * e_busy / e_prof_ms:.1f}% ({e_n} "
-        f"records; a record the profiler lost only lowers a share); "
+        f"records with the batch's {n_copies} copies), eager {e_busy}; a "
+        f"record the profiler lost only lowers a share; "
         f"capture {capture_ms:.1f}ms host; "
         f"memory: {held_gb:.2f} GB reserved with the graph held (its pool, "
         f"the weights, the optimizer state), peak {peak_gb:.2f} GB allocated "
         f"over the example's run (warm-up and capture), eager step peak "
-        f"{eager_gb:.2f} GB allocated; {smi}")
+        f"{eager_gb:.2f} GB allocated, {eager_reserved_gb:.2f} GB reserved; "
+        f"{smi}")
     for e in sorted(events, key=lambda e: e.self_device_time_total,
                     reverse=True)[:10]:
         log(f"  {e.self_device_time_total / 1e3:8.2f}ms  {e.count:6d}x  "
             f"{e.key[:90]}")
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-    step(batch, ev)
-    torch.cuda.synchronize()
-    fwd, bwd, upd = (ev[i].elapsed_time(ev[i + 1]) for i in range(3))
-    log(f"train {arch} one step by CUDA events: forward {fwd:.2f}ms, "
-        f"backward (remat recompute included) {bwd:.2f}ms, SGD update "
-        f"{upd:.2f}ms; {smi}")
+    if not light:
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        step(batch, ev)
+        torch.cuda.synchronize()
+        fwd, bwd, upd = (ev[i].elapsed_time(ev[i + 1]) for i in range(3))
+        log(f"train {arch} one step by CUDA events: forward {fwd:.2f}ms, "
+            f"backward (remat recompute included) {bwd:.2f}ms, SGD update "
+            f"{upd:.2f}ms; {smi}")
     del model, params, state, res, eager_step
     gc.collect()
     torch.cuda.empty_cache()
@@ -4283,32 +4394,116 @@ def phase_family(arch: str, errs) -> list:
     return rows
 
 
-def phase_training(spec: tuple, errs, smi: str) -> list:
+def phase_training(spec: tuple, errs, smi: str, light: bool = False) -> list:
     """The training phase of one architecture, ``spec`` an entry of
-    ``TRAIN_ARCHS`` or ``FAMILY_TRAIN_ARCHS``: the kernels' training
-    parity at each of its shapes (and at its extra architectures'
-    shapes), the kernel-path holds, the main path's run and its kernels'
-    training rows, one per K5 shape."""
+    ``TRAIN_ARCHS`` or ``FAMILY_TRAIN_ARCHS``, at full width and the
+    spec's depth: the kernels' training parity at each of its shapes, the
+    kernel-path holds, the main path's run (``light``: see
+    ``phase_train``) and its kernels' training rows, one per K5 shape."""
     from repro_torch.configs import get_config
-    arch, steps, extras = spec
+    arch, steps, layers = spec
     cfg = get_config(arch)
+    if layers:
+        log(f"train: {arch} at full width on its first {layers} of "
+            f"{cfg.n_layers} layers (phase 20 trains granite-3-8b's same "
+            f"attention shape at full depth)")
+        cfg = cfg.with_overrides(n_layers=layers)
     for shape in train_shapes(cfg):
         errs.update(phase_train_parity(
             cfg, shape, _train_row("flash_attention", cfg, _part(shape))))
-    for extra in extras:
-        xcfg = get_config(extra)
-        for shape in train_shapes(xcfg):
-            phase_train_parity(xcfg, shape, "")
     if cfg.ssm_state:
         errs.update(phase_train_parity_ssd(cfg))
     phase_train_holds(cfg)
     phase_train_graph_hold(cfg)
-    cfg, launches, by_shape = phase_train(smi, cfg, steps)
+    cfg, launches, by_shape = phase_train(smi, cfg, steps, light)
     rows = []
     for shape, n in by_shape.items():
         rows += phase_timing_train(cfg, shape, n, steps, errs, smi)
     if launches["ssd_scan"]:
         rows += phase_timing_train_ssd(cfg, launches["ssd_scan"], errs, smi)
+    return rows
+
+
+def phase_train_fixed_batch(smi: str) -> None:
+    """The reference's ``test_train_lm_loss_decreases`` at full width:
+    qwen1.5-0.5b (random weights, seed 0) through the example's step
+    (``make_step``) captured on the card (``train_graphs.for_device``),
+    ``FIXED_BATCH_STEPS`` steps on one batch (``make_batch``'s step 0 each
+    step, B 4, S 4096) with SGD at the constant learning rate
+    ``FIXED_BATCH_LR``: every loss finite and the last below the first.
+    The drop is reported beside the reference test's margin of 0.5 nats
+    (which that test holds at the smoke config and lr 0.3)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train_graphs
+    from repro_torch.models import ExecConfig, build_model
+    from repro_torch.models.weights import trainable
+    from repro_torch.optim import SGD
+    sys.path.insert(0, str(ROOT / "examples"))
+    import train_lm_torch as twin
+    cfg = get_config(ARCH)
+    t0 = time.perf_counter()
+    model = build_model(cfg, ExecConfig(loss_chunk=min(TRAIN_SEQ, 128)))
+    opt = SGD(lr=FIXED_BATCH_LR)
+    params = trainable(model.init(
+        torch.Generator(device="cuda").manual_seed(0), "cuda"))
+    state = opt.init(params)
+    step = train_graphs.for_device(twin.make_step(model, opt), "cuda")
+    batch = _train_batch(cfg, 0)
+    losses = []
+    for _ in range(FIXED_BATCH_STEPS):
+        params, state, loss = step(params, state, batch)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    replays = step.replays
+    step.close()
+    losses = [float(x) for x in losses]
+    del step, params, state, model, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"train {ARCH} on one fixed batch (make_batch step 0, B "
+        f"{TRAIN_BATCH} S {TRAIN_SEQ}), {FIXED_BATCH_STEPS} steps of SGD at "
+        f"a constant lr {FIXED_BATCH_LR} through the example's captured step "
+        f"({replays} replays): loss {losses[0]:.5f} -> {losses[-1]:.5f}, a "
+        f"drop of {losses[0] - losses[-1]:.5f} nats (the reference test's "
+        f"margin: 0.5 at its smoke config, lr 0.3); every 5th: "
+        f"{[round(x, 5) for x in losses[::5]]}; "
+        f"{time.perf_counter() - t0:.1f}s; {smi}")
+    if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"fixed-batch losses {losses}")
+
+
+def phase_train_large(spec: tuple, errs, smi: str) -> list:
+    """Phase 20 for one of ``GQA_TRAIN_ARCHS`` at full width and depth:
+    K5's training parity and ``FlashAttentionFn``'s gradients at its
+    attention shape; the kernel path against the plain path in bf16 at
+    full depth, and the f32 witness on its first ``F32_HOLD_LAYERS``
+    layers (``phase_train_holds``); the captured step bitwise against the
+    eager step; the main path's run (``phase_train``, light) and its K5
+    training row, unless another architecture's row times the same
+    shape."""
+    from repro_torch.configs import get_config
+    arch, steps, row_of = spec
+    cfg = get_config(arch)
+    t0 = time.perf_counter()
+    for shape in train_shapes(cfg):
+        err = phase_train_parity(cfg, shape, _train_row("flash_attention",
+                                                        cfg))
+        if row_of is None:
+            errs.update(err)
+    phase_train_holds(cfg, f32_layers=F32_HOLD_LAYERS)
+    phase_train_graph_hold(cfg)
+    cfg, _, by_shape = phase_train(smi, cfg, steps, light=True)
+    rows = []
+    for shape, n in by_shape.items():
+        if row_of is None:
+            rows += phase_timing_train(cfg, shape, n, steps, errs, smi)
+        else:
+            log(f"timing: K5's training row at {arch}'s shape {shape} is "
+                f"{row_of}'s ({_train_row('flash_attention', get_config(row_of))}"
+                f", the same operands): no second row; its launches in "
+                f"this run {n} ({n // steps} a step)")
+    log(f"train {arch}: phase 20 took {time.perf_counter() - t0:.1f}s")
     return rows
 
 
@@ -4575,11 +4770,12 @@ def main(argv) -> int:
     sys.path.insert(0, str(SRC))
     mode = argv[0] if argv else None
     if mode not in (None, "parity", "flash", "gmm", "decode", "ssd",
-                    "profile", "fanout", "train", "trainfam", "gqa",
-                    "paper", "families", "chaos", "mesh") or len(argv) > 1:
+                    "profile", "fanout", "train", "trainfam", "traingqa",
+                    "gqa", "paper", "families", "chaos",
+                    "mesh") or len(argv) > 1:
         print(f"chip_smoke: arguments {argv}: none, or one of parity, flash, "
-              f"gmm, decode, ssd, profile, fanout, train, trainfam, gqa, "
-              f"paper, families, chaos, mesh", file=sys.stderr)
+              f"gmm, decode, ssd, profile, fanout, train, trainfam, "
+              f"traingqa, gqa, paper, families, chaos, mesh", file=sys.stderr)
         return 2
     parity_only = mode == "parity"        # a new kernel's first, short run
     flash_only = mode == "flash"          # K5 alone: A/B of its designs
@@ -4634,12 +4830,20 @@ def main(argv) -> int:
         return 0
     if mode == "train":                   # the training paths alone
         for spec in TRAIN_ARCHS:
-            phase_training(spec, errs, smi)
+            phase_training(spec, errs, smi, light=spec[0] != ARCH)
         log(smi)
         return 0
     if mode == "trainfam":                # phase 18 alone
         rows = [r for spec in FAMILY_TRAIN_ARCHS
-                for r in phase_training(spec, errs, smi)]
+                for r in phase_training(spec, errs, smi, light=True)]
+        print(json.dumps({"kernels": rows}), flush=True)
+        log(f"chip_smoke: {time.perf_counter() - t0:.1f}s")
+        log(smi)
+        return 0
+    if mode == "traingqa":                # phase 20 alone
+        phase_train_fixed_batch(smi)
+        rows = [r for spec in GQA_TRAIN_ARCHS
+                for r in phase_train_large(spec, errs, smi)]
         print(json.dumps({"kernels": rows}), flush=True)
         log(f"chip_smoke: {time.perf_counter() - t0:.1f}s")
         log(smi)
@@ -4731,8 +4935,13 @@ def main(argv) -> int:
         rows += phase_gqa(arch, errs)
     for arch in FAMILY_ARCHS:     # the same, the encoder/decoder and the VLM
         rows += phase_family(arch, errs)
-    for spec in TRAIN_ARCHS + FAMILY_TRAIN_ARCHS:   # phases 15, 16 and 18
-        rows += phase_training(spec, errs, smi)
+    for spec in TRAIN_ARCHS:                         # phases 15 and 16
+        rows += phase_training(spec, errs, smi, light=spec[0] != ARCH)
+    for spec in FAMILY_TRAIN_ARCHS:                  # phase 18
+        rows += phase_training(spec, errs, smi, light=True)
+    phase_train_fixed_batch(smi)                     # phase 20
+    for spec in GQA_TRAIN_ARCHS:
+        rows += phase_train_large(spec, errs, smi)
     phase_mesh(smi)                                  # phase 19
     log(f"chip_smoke: {time.perf_counter() - t0:.1f}s")
     print(smi)

@@ -8,10 +8,13 @@ qwen1.5-0.5b --seq 4096 --batch 4`` trains the whole 0.46 B-parameter
 model at train_4k's sequence length, its batch cut from 256 to 4
 (``chip_smoke.py`` runs it so, and so ``--arch mamba2-130m`` and
 ``--arch zamba2-1.2b``, whose Mamba layers run the SSD scan kernel K8 in
-the forward and the plain chunked scan in the backward, and ``--arch
+the forward and the plain chunked scan in the backward, ``--arch
 whisper-tiny``, ``internvl2-2b`` and ``qwen3-4b``: the encoder/decoder
 batch carries 1,500 frames a row and the VLM's 256 patch embeddings
-ahead of 3,840 text tokens, every attention call through K5).  On the
+ahead of 3,840 text tokens, every attention call through K5; and
+``--arch granite-3-8b`` and ``starcoder2-7b`` at their full 8.2 B and
+7.4 B parameters, whose weights, gradients and activations fit one
+80 GB card since the SGD update holds no f32 copy of the model).  On the
 card the step is captured as a CUDA graph, as the reference jits it
 (``repro_torch.launch.train_graphs``): step 0 runs eagerly as the
 warm-up, the next step captures it (after any ``--resume``) and replays,
@@ -60,6 +63,22 @@ def parser() -> argparse.ArgumentParser:
     return ap
 
 
+def make_step(model, opt):
+    """The example's train step: step(params, state, batch) -> (params,
+    state, loss), the parameters and the optimizer state updated in place
+    (what ``train_graphs.for_device`` captures on the card)."""
+
+    def train_step(params, state, batch):
+        (loss, metrics) = model.loss(params, batch)
+        ps = list(params.parameters())
+        grads = torch.autograd.grad(loss, ps)
+        names = [n for n, _ in params.named_parameters()]
+        params, state = opt.update(dict(zip(names, grads)), state, params)
+        return params, state, loss.detach()
+
+    return train_step
+
+
 def main(argv=None) -> dict:
     """Trains; returns the config, each step's loss (tensors on the device)
     and host seconds (ending in a sync of the card), the parameters and
@@ -104,15 +123,7 @@ def main(argv=None) -> dict:
         (params, state), start_step, _ = ck.restore((params, state))
         print(f"resumed from step {start_step}")
 
-    def train_step(params, state, batch):
-        (loss, metrics) = model.loss(params, batch)
-        ps = list(params.parameters())
-        grads = torch.autograd.grad(loss, ps)
-        names = [n for n, _ in params.named_parameters()]
-        params, state = opt.update(dict(zip(names, grads)), state, params)
-        return params, state, loss.detach()
-
-    step_fn = train_graphs.for_device(train_step, device)
+    step_fn = train_graphs.for_device(make_step(model, opt), device)
     pc = PipelineConfig(seed=0)
     t0 = time.perf_counter()
     tokens_done = 0

@@ -51,7 +51,13 @@ def accumulate_grads(loss_fn: Callable, params: nn.Module,
             # is g exactly), so no zero-filled set of leaves is held
             acc, loss_sum = _owned(gs, accum_dtype), loss.float()
         else:
-            torch._foreach_add_(acc, [g.to(accum_dtype) for g in gs])
+            # a gradient that widens exactly into the accumulator's dtype
+            # is added as it is (the add promotes it element by element,
+            # so no cast copy of every leaf is held); one that narrows is
+            # cast first, as the reference does
+            torch._foreach_add_(acc, [
+                g if torch.promote_types(g.dtype, accum_dtype) == accum_dtype
+                else g.to(accum_dtype) for g in gs])
             loss_sum = loss_sum + loss
         del gs
     torch._foreach_div_(acc, n_micro)

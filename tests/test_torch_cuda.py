@@ -25,7 +25,10 @@ wires, and the Fig. 9 twin's rows hold and count their launches.  The
 chaos suite's storm with the tiers on the card, on the int8 wire: K1
 once per int8 encode, K2 once per frame a device replica pulls;
 zamba2-1.2b's smoke model in the fan-out's compiled forward, replay
-against eager.  This file imports no JAX: the
+against eager.  The hypothesis properties of
+``tests/test_kernels_property.py`` hold K5, K1 then K2, and K7 against
+their plain versions over the reference's strategies (K5's head dim drawn
+from the kernel's instances, with a drawn ``q_offset``).  This file imports no JAX: the
 machine with the card has none.  Run it there with
 ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``.
 """
@@ -36,6 +39,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+from hypothesis import HealthCheck, given, settings, strategies as st
 
 from repro_torch.configs import smoke_config
 from repro_torch.kernels.decode_attention import (decode_attention,
@@ -1654,3 +1658,107 @@ def test_hybrid_graphed_call_equals_the_eager_call_bitwise(card):
                            "ssd_scan": cfg.n_layers}
     assert graphs.captures == 2 and graphs.replays == 6
     graphs.close()
+
+
+# -- the reference's kernel properties (tests/test_kernels_property.py) --------
+
+# the reference's settings; the card fixture is set up once per test, not
+# per example (it only checks for the card and turns TF32 off)
+PROPERTY = dict(max_examples=20, deadline=None,
+                suppress_health_check=[HealthCheck.function_scoped_fixture])
+
+
+@pytest.mark.cuda
+@settings(**PROPERTY)
+@given(
+    B=st.integers(1, 2),
+    Sq=st.integers(1, 12),
+    Sk=st.integers(1, 12),
+    G=st.integers(1, 3),
+    K=st.integers(1, 2),
+    causal=st.booleans(),
+    D=st.sampled_from(flash_ops.HEAD_DIMS),
+    off=st.integers(0, 12),
+    bf16=st.booleans(),
+    seed=st.integers(0, 2**16),
+)
+def test_flash_kernel_any_shape_matches_its_plain_version(card, B, Sq, Sk, G,
+                                                          K, causal, D, off,
+                                                          bf16, seed):
+    """K5 at any (B, Sq, Sk, G, K), causal or not, against
+    ``attention_ref``: the reference's property with the head dim drawn
+    from the kernel's instances (the reference's D 8 is none) and a drawn
+    ``q_offset`` under the causal mask (every row sees key 0), at the
+    reference's 3e-5 in f32 and 3e-2 in bf16."""
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    rng = np.random.default_rng(seed)
+    H = K * G
+    q = _randn(rng, (B, Sq, H, D), dtype, card)
+    k, v = (_randn(rng, (B, Sk, K, D), dtype, card) for _ in range(2))
+    off = off if causal else 0
+    n = flash_ops.LAUNCHES.value
+    got = flash_attention(q, k, v, causal=causal, q_offset=off)
+    torch.cuda.synchronize()
+    assert flash_ops.LAUNCHES.value == n + 1
+    tol = 3e-2 if bf16 else 3e-5
+    torch.testing.assert_close(
+        got.float(), attention_ref(q, k, v, causal=causal,
+                                   q_offset=off).float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@settings(**PROPERTY)
+@given(n=st.integers(1, 500), seed=st.integers(0, 2**16),
+       scale=st.floats(1e-3, 1e3))
+def test_push_delta_kernels_bounded_error(card, n, seed, scale):
+    """K1 then K2 (``quantize_delta`` then ``apply_delta`` on card
+    tensors): the codes and scales bitwise K1's plain version's, the
+    applied value within 2e-5 of K2's plain version's, and the
+    reference's bound: |dequant(quant(delta)) - delta| <= absmax/127 per
+    128-lane row."""
+    rng = np.random.default_rng(seed)
+    local = torch.from_numpy((rng.normal(size=(n,)) * scale).astype(
+        np.float32)).to(card)
+    base = torch.from_numpy((rng.normal(size=(n,)) * scale).astype(
+        np.float32)).to(card)
+    gv = torch.zeros((n,), dtype=torch.float32, device=card)
+    q, s, _ = _counted("quantize_delta", lambda: sp_ops.quantize_delta(
+        local, base))
+    got = _counted("apply_delta", lambda: sp_ops.apply_delta(gv, q, s))
+    qp, sp, _ = sp_ops.quantize_delta(local, base, backend="torch")
+    assert torch.equal(q, qp) and torch.equal(s, sp)
+    torch.testing.assert_close(got, sp_ops.apply_delta(gv, q, s,
+                                                       backend="torch"),
+                               atol=2e-5, rtol=2e-5)
+    delta = (local - base).cpu().numpy()
+    err = np.abs(got.cpu().numpy() - delta)
+    bound = np.abs(delta).max() / 127.0 * 1.01 + 1e-9
+    assert err.max() <= bound
+
+
+@pytest.mark.cuda
+@settings(**PROPERTY)
+@given(T=st.integers(1, 40), E=st.integers(1, 6),
+       d=st.sampled_from([8, 16, 64]), f=st.sampled_from([8, 24, 64]),
+       bf16=st.booleans(), seed=st.integers(0, 2**16))
+def test_gmm_kernel_any_grouping(card, T, E, d, f, bf16, seed):
+    """K7 over any grouping of T rows into E experts (the reference's
+    draws; d and f multiples of 8, as the kernel takes them) against
+    ``gmm_ref``, at the reference's 1e-4 in f32 and 3e-2 in bf16; the
+    rows past the groups are zero."""
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    rng = np.random.default_rng(seed)
+    x = _randn(rng, (T, d), dtype, card)
+    w = _randn(rng, (E, d, f), dtype, card)
+    cuts = np.sort(rng.integers(0, T + 1, size=E - 1)) if E > 1 else \
+        np.array([], int)
+    gs = torch.as_tensor(np.diff(np.concatenate([[0], cuts, [T]])),
+                         dtype=torch.int32, device=card)
+    n = gmm_ops.LAUNCHES.value
+    got = gmm(x, w, gs)
+    torch.cuda.synchronize()
+    assert gmm_ops.LAUNCHES.value == n + 1
+    tol = 3e-2 if bf16 else 1e-4
+    torch.testing.assert_close(got.float(), gmm_ref(x, w, gs).float(),
+                               atol=tol, rtol=tol)
+    assert got.dtype == dtype
