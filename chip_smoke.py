@@ -2952,9 +2952,9 @@ def _busy(prof) -> tuple:
 def phase_warm_serve(res) -> None:
     """Warm prefill and decode-loop times on the weights and prompt of the
     main-path run, of the eager loop (``_serve_once``) and of the
-    launcher's graphed loop (``ServeGraphs.generate``), ``WARM_RUNS`` each,
-    then one run of each under torch.profiler for the device's busy
-    share and the ops that hold it.  The profiler covers the loop's last
+    launcher's graphs (``_serve_graphed``), both on the host's clock,
+    ``WARM_RUNS`` each, then one run of each under torch.profiler for the
+    device's busy share and the ops that hold it.  The profiler covers the loop's last
     ``PROFILE_STEPS`` decode steps alone (reading a trace of all 31 steps
     took 10-20 s a model; no warm prefill is profiled), beside the
     unprofiled runs' wall of the same steps (``WARM_RUNS`` more for the
@@ -2972,8 +2972,7 @@ def phase_warm_serve(res) -> None:
     k = PROFILE_STEPS                             # decode steps profiled
     runs = [_serve_once(model, params, tokens, extra=extra, ctx_steps=k)
             for _ in range(WARM_RUNS)]
-    g_runs = [graphs.generate(tokens, NEW_TOKENS) for _ in range(WARM_RUNS)]
-    g_runs = [(g.prefill_s, g.decode_s) for g in g_runs]
+    g_runs = [_serve_graphed(graphs, tokens) for _ in range(WARM_RUNS)]
     rate = lambda r: BATCH * steps / r[-1]        # the whole decode loop
     host = [replay_host_ms(graphs, tokens) for _ in range(2)]
     log(f"warm serve {name} ({WARM_RUNS} runs each), eager | graphed: "

@@ -37,6 +37,7 @@ from repro_torch.kernels.common import (DTYPE_CODES, HEAD_DIMS,
                                         local_operands, report_cost)
 from repro_torch.kernels.flash_attention.ref import (attention_ref,
                                                      flash_attention_bwd)
+from repro_torch.telemetry.device import device_span
 
 LAUNCHES = LaunchCounter()      # kernel launches, by (Sq, Sk, H, K, D, causal)
 
@@ -70,7 +71,8 @@ def flash_attention(q, k, v, *, causal: bool = True, scale: float | None = None,
 
 class FlashAttentionFn(torch.autograd.Function):
     """The kernel's forward, saving ``(q, k, v, out, lse)``; the plain
-    flash backward (:func:`ref.flash_attention_bwd`) from them."""
+    flash backward (:func:`ref.flash_attention_bwd`) from them, one
+    device span (``train.flash_bwd``) a call."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale, q_offset):
@@ -83,9 +85,11 @@ class FlashAttentionFn(torch.autograd.Function):
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
         causal, scale, q_offset = ctx.args
-        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout,
-                                         causal=causal, scale=scale,
-                                         q_offset=q_offset, block_k=BLOCK_K)
+        with device_span("train.flash_bwd", q.device):
+            dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout,
+                                             causal=causal, scale=scale,
+                                             q_offset=q_offset,
+                                             block_k=BLOCK_K)
         return dq, dk, dv, None, None, None
 
 

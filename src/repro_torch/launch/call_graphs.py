@@ -26,6 +26,7 @@ from repro_torch.kernels.common import LaunchLog, resolve_device
 from repro_torch.launch.step_graphs import CudaCapture
 from repro_torch.models.weights import params_class
 from repro_torch.telemetry import clock as tclock
+from repro_torch.telemetry.device import device_span
 
 
 _STREAMS: Dict[tuple, torch.cuda.Stream] = {}   # (device, slot) -> stream
@@ -82,9 +83,11 @@ def param_bytes(cfg) -> int:
 
 
 class CallResult(NamedTuple):
-    """One call of :class:`CallGraphs`.  The times are the slot stream's
-    (CUDA events on the card): ``h2d_ms`` the copy of the parameters and
-    the prompt, ``forward_ms`` the replay and the token's copy back;
+    """One call of :class:`CallGraphs`.  The times are the slot stream's,
+    the call's device spans (``telemetry/device.py``, taken at every call
+    with the slot capture's timing events): ``h2d_ms`` the copy of the
+    parameters and the prompt (``serve.param_h2d``), ``forward_ms`` the
+    replay and the token's copy back (``serve.call_forward``);
     ``capture_ms`` is the host's time to warm up and capture a prompt
     length the slot had not seen (0.0 when the call only replayed).
     ``logits`` are the last position's f32 logits when kept, else None."""
@@ -312,30 +315,30 @@ class CallGraphs:
                                           pin_memory=self._pin)
             else:
                 prompt, host_prompt = fwd.prompt, fwd.host_prompt
-            start = cap.stamp()
-            for dtype, buf in slot.flats.items():       # one copy a dtype
-                buf.copy_(leaves.flats[dtype], non_blocking=True)
-            host_prompt.numpy()[...] = tokens
-            prompt.copy_(host_prompt, non_blocking=True)
-            copied = ready = cap.stamp()
+            with device_span("serve.param_h2d", event=cap.event,
+                             always=True) as h2d:
+                for dtype, buf in slot.flats.items():   # one copy a dtype
+                    buf.copy_(leaves.flats[dtype], non_blocking=True)
+                host_prompt.numpy()[...] = tokens
+                prompt.copy_(host_prompt, non_blocking=True)
             capture_ms = 0.0
-            if fwd is None:
+            if fwd is None:               # the warm-up's time is neither
                 t0 = tclock.now()
                 fwd = self._capture(slot, prompt, host_prompt)
                 capture_ms = (tclock.now() - t0) * 1e3
                 slot.forwards[S] = fwd
-                ready = cap.stamp()       # the warm-up's time is neither
-            cancellation.checkpoint()
-            fwd.graph.replay()
-            fwd.launches.replay()
-            slot.host_tok.copy_(fwd.out["tok"], non_blocking=True)
-            logits = fwd.out["logits"].clone() if keep_logits else None
-            done = cap.stamp()
+            with device_span("serve.call_forward", event=cap.event,
+                             always=True) as forward:
+                cancellation.checkpoint()
+                fwd.graph.replay()
+                fwd.launches.replay()
+                slot.host_tok.copy_(fwd.out["tok"], non_blocking=True)
+                logits = fwd.out["logits"].clone() if keep_logits else None
         with self._cv:
             self.replays += 1
-        done.synchronize()
-        return CallResult(int(slot.host_tok[0]), start.elapsed_time(copied),
-                          ready.elapsed_time(done), capture_ms, logits)
+        forward.end.synchronize()         # the token's copy back
+        return CallResult(int(slot.host_tok[0]), h2d.read(), forward.read(),
+                          capture_ms, logits)
 
     def close(self) -> None:
         """Free every idle slot now and each busy one when its call returns

@@ -1,8 +1,9 @@
 """Serving launcher: ``python -m repro_torch.launch.serve --arch <id> [--smoke]``.
 
 Port of ``repro.launch.serve``: build the model, prefill a batch of
-prompts, then decode greedily, reporting the prefill and decode times from
-the metrics registry.  ``--faasm-requests N`` then pushes an N-request wave
+prompts, then decode greedily, reporting the prefill and decode times of
+the loop's ``Generation`` (on the card its device spans) and observing them
+in the metrics registry.  ``--faasm-requests N`` then pushes an N-request wave
 through the port's Faasm runtime (``invoke_many`` + ``wait_all`` on a shared
 completion latch) and reports p50/p99 latency and batch throughput; with
 ``--state-wire`` each request also adds its token to the shared
@@ -35,7 +36,6 @@ from repro_torch.models.weights import numpy_to_torch, params_class
 from repro_torch.overload import DEADLINE_RC, SHED_RC
 from repro_torch.telemetry import clock as tclock
 from repro_torch.telemetry import metrics as tmetrics
-from repro_torch.telemetry import spans as tspans
 
 
 def pinned_empty(numel: int, dtype: torch.dtype) -> torch.Tensor:
@@ -475,10 +475,12 @@ def main(argv: Optional[List[str]] = None, keep_logits: bool = False) -> dict:
     and then replays the prefill graph once and the decode graph once per
     new token.  The warm-up and capture come before the timers start and
     land in ``faasm_serve_graph_capture_ms``; the prefill and decode
-    timers time replays only.  That is the one difference kept from the
-    reference, whose first prefill includes its jit compile.  On the CPU
-    (``--device cpu``), which has no graphs, the loop runs op by op
-    (:func:`~repro_torch.launch.step_graphs.eager_generate`).
+    times are the replays' on the device's clock (the batch's device
+    spans, ``ServeGraphs.generate``).  That is the one difference kept
+    from the reference, whose first prefill includes its jit compile.  On
+    the CPU (``--device cpu``), which has no graphs, the loop runs op by
+    op (:func:`~repro_torch.launch.step_graphs.eager_generate`) and its
+    times are the host's.
 
     The result holds the config, model, parameters, prompt ``tokens``
     (B, S), the family's ``extra`` input (:func:`serve_extra`), the
@@ -499,8 +501,7 @@ def main(argv: Optional[List[str]] = None, keep_logits: bool = False) -> dict:
     h_decode = reg.histogram("faasm_serve_decode_ms")
     h_capture = reg.histogram("faasm_serve_graph_capture_ms",
                               "warm-up and capture of the step graphs")
-    # the registry outlives a call
-    sum0 = (h_prefill.sum, h_decode.sum, h_capture.sum)
+    sum0 = h_capture.sum            # the registry outlives a call
 
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
     model = build_model(cfg, ExecConfig(backend="auto"))
@@ -514,7 +515,6 @@ def main(argv: Optional[List[str]] = None, keep_logits: bool = False) -> dict:
                              dtype=torch.int32, device=device)
     extra = serve_extra(model, B, rng, device)  # and its extra input
 
-    tel = tspans.tracer()
     graphs = None
     if device.type == "cuda":       # the compiled step, captured before t0
         t0 = tclock.now()
@@ -525,19 +525,14 @@ def main(argv: Optional[List[str]] = None, keep_logits: bool = False) -> dict:
     else:
         run = eager_generate(model, params, tokens, args.new_tokens,
                              keep_logits, extra=extra)
-    t0, t1, t2 = run.stamps
-    h_prefill.observe((t1 - t0) * 1e3)
-    h_decode.observe((t2 - t1) * 1e3)
-    if tel is not None:
-        tel.record("serve.prefill", "serve", t0, t1, arch=cfg.name, tokens=S)
-        tel.record("serve.decode", "serve", t1, t2, arch=cfg.name,
-                   steps=args.new_tokens - 1)
+    # on the card the loop's own serve.prefill device span observes
+    # faasm_serve_prefill_ms (telemetry/device.py)
+    prefill_s, decode_s = run.prefill_s, run.decode_s
+    if graphs is None:
+        h_prefill.observe(prefill_s * 1e3)
+    h_decode.observe(decode_s * 1e3)
     gen_ids = run.ids
-    # the printed line reads the registry — the timers above are its only
-    # writers, so the log and a scrape can never disagree
-    prefill_s = (h_prefill.sum - sum0[0]) / 1e3
-    decode_s = (h_decode.sum - sum0[1]) / 1e3
-    capture_s = (h_capture.sum - sum0[2]) / 1e3
+    capture_s = (h_capture.sum - sum0) / 1e3
     if graphs is not None:
         print(f"{cfg.name}: step graphs warmed up and captured in "
               f"{capture_s * 1e3:.1f}ms")

@@ -23,25 +23,20 @@ import torch
 from repro_torch import cancellation
 from repro_torch.kernels.common import LaunchLog, resolve_device
 from repro_torch.telemetry import clock as tclock
+from repro_torch.telemetry.device import cuda_event, device_span, publish
 
 
 @dataclasses.dataclass
 class Generation:
     """One greedy generation: ``ids`` (B, new_tokens) int32, ``logits`` the
-    (B, V) f32 logits that chose each id (when kept, else empty), and
-    ``stamps``, the clock (``telemetry.clock``) at the start, after the
-    prefill and after the last decode step, each taken after a sync."""
+    (B, V) f32 logits that chose each id (when kept, else empty), and the
+    seconds of the prefill and of the decode steps after it.  The graphed
+    loop takes them on the device's clock (its batch's device spans), the
+    eager loop on the host's (``telemetry.clock``, each after a sync)."""
     ids: torch.Tensor
     logits: List[torch.Tensor]
-    stamps: tuple
-
-    @property
-    def prefill_s(self) -> float:
-        return self.stamps[1] - self.stamps[0]
-
-    @property
-    def decode_s(self) -> float:
-        return self.stamps[2] - self.stamps[1]
+    prefill_s: float
+    decode_s: float
 
 
 def sync(device: torch.device) -> None:
@@ -56,26 +51,31 @@ def eager_generate(model, params, tokens, new_tokens: int,
                    keep_logits: bool = False, extra=None) -> Generation:
     """Prefill ``tokens`` (B, S) (and ``extra``, the family's extra input)
     and decode greedily, op by op from Python, into a fresh cache of
-    ``model.prefix_len`` + S + ``new_tokens`` positions."""
+    ``model.prefix_len`` + S + ``new_tokens`` positions.  The prefill and
+    each decode step are device spans (``serve.prefill``,
+    ``serve.decode_step``) while armed."""
     B, S = tokens.shape
     device = tokens.device
     cache = model.init_cache(B, model.prefix_len + S + new_tokens, device)
     sync(device)
     t0 = tclock.now()
-    logits, cache, n = model.prefill(params, tokens, cache, extra)
+    with device_span("serve.prefill", device):
+        logits, cache, n = model.prefill(params, tokens, cache, extra)
     tok = torch.argmax(logits, -1).to(torch.int32)
     sync(device)
     t1 = tclock.now()
     out, kept = [tok], ([logits] if keep_logits else [])
     for i in range(new_tokens - 1):
         idx = torch.full((B,), n + i, dtype=torch.int32, device=device)
-        logits, cache = model.decode_step(params, tok, cache, idx)
+        with device_span("serve.decode_step", device):
+            logits, cache = model.decode_step(params, tok, cache, idx)
         tok = torch.argmax(logits, -1).to(torch.int32)
         out.append(tok)
         if keep_logits:
             kept.append(logits)
     sync(device)
-    return Generation(torch.stack(out, dim=1), kept, (t0, t1, tclock.now()))
+    return Generation(torch.stack(out, dim=1), kept, t1 - t0,
+                      tclock.now() - t1)
 
 
 _CAPTURE_LOCK = threading.Lock()   # one capture at a time in the process
@@ -84,7 +84,7 @@ _CAPTURE_LOCK = threading.Lock()   # one capture at a time in the process
 class CudaCapture:
     """How :class:`ServeGraphs` records its steps on the card: one capture
     stream and one memory pool, which its graphs share.  (A test hands
-    :class:`ServeGraphs` a stand-in with the same two methods.)
+    :class:`ServeGraphs` a stand-in with the same three methods.)
 
     Captures take turns, one at a time in the process, as PyTorch's graph
     API expects; replays and other work need no turn.  A capture does not
@@ -123,11 +123,11 @@ class CudaCapture:
                 graph.capture_end()
         return graph
 
-    def stamp(self) -> torch.cuda.Event:
-        """A timing event recorded on the capture stream now."""
-        event = torch.cuda.Event(enable_timing=True)
-        event.record(self.stream)
-        return event
+    @staticmethod
+    def event() -> torch.cuda.Event:
+        """A timing event of its owner's device spans
+        (``telemetry.device``), recorded on the stream current then."""
+        return cuda_event()
 
 
 class _Step(NamedTuple):
@@ -205,6 +205,8 @@ class ServeGraphs:
                                   dtype=torch.float32, device=device)
         self.cache = model.init_cache(batch, max_len, device)
         self.replays = {"prefill": 0, "decode": 0}
+        self.batches = 0                   # generate's calls
+        self._event = capture.event        # the batch's timing events
         self._next: Optional[int] = None   # idx as the host knows it
         with torch.no_grad():
             with LaunchLog() as self.warmup_launches, capture.on_stream():
@@ -273,26 +275,53 @@ class ServeGraphs:
     def generate(self, tokens: torch.Tensor, new_tokens: int,
                  keep_logits: bool = False) -> Generation:
         """One prefill replay, then ``new_tokens - 1`` decode replays, each
-        step's token (and logits) copied out."""
+        step's token (and logits) copied out, and one sync at the end.
+
+        The batch's device spans, read after that sync: ``serve.prefill``
+        around the prefill replay and its copies out, always
+        (``Generation.prefill_s``; the decode's seconds run from its end to
+        the batch's last event); while armed, ``serve.decode_step`` around
+        each decode replay and its copies out and, given at least one
+        decode step, ``serve.host_wait``: the device time between the
+        batch's first and last events in which none of its spans ran, i.e.
+        the device waiting on this host (tagged with ``lead_ms``, the part
+        before the prefill)."""
         max_len = self.shape[2]
         if not 1 <= new_tokens <= max_len - self.start:
             raise ValueError(f"{new_tokens} new tokens: these graphs hold "
                              f"1 to {max_len - self.start}")
-        sync(self.device)
+        batch, event = self.batches, self._event
+        self.batches += 1
+        first = event()
+        first.record()
         t0 = tclock.now()
-        logits = self.prefill(tokens)
-        out = [self.tok.clone()]
-        kept = [logits.clone()] if keep_logits else []
-        sync(self.device)
-        t1 = tclock.now()
+        with device_span("serve.prefill", event=event, always=True,
+                         batch=batch) as pre:
+            logits = self.prefill(tokens)
+            out = [self.tok.clone()]
+            kept = [logits.clone()] if keep_logits else []
+        steps = []
         for _ in range(new_tokens - 1):
-            logits = self.step()
-            out.append(self.tok.clone())
-            if keep_logits:
-                kept.append(logits.clone())
+            with device_span("serve.decode_step", event=event,
+                             batch=batch) as step:
+                logits = self.step()
+                out.append(self.tok.clone())
+                if keep_logits:
+                    kept.append(logits.clone())
+            steps.append(step)
+        last = event()
+        last.record()
         sync(self.device)
-        return Generation(torch.stack(out, dim=1), kept,
-                          (t0, t1, tclock.now()))
+        publish("serve.prefill", pre.read(), pre.t0, batch=batch)
+        timed = [s for s in steps if s.read() is not None]
+        for s in timed:
+            publish(s.name, s.ms, s.t0, batch=batch)
+        if steps and len(timed) == len(steps):
+            publish("serve.host_wait", first.elapsed_time(last) - pre.ms
+                    - sum(s.ms for s in steps), t0, batch=batch,
+                    lead_ms=first.elapsed_time(pre.start))
+        return Generation(torch.stack(out, dim=1), kept, pre.ms / 1e3,
+                          pre.end.elapsed_time(last) / 1e3)
 
     def close(self) -> None:
         """Free the graphs and so the memory of their pool."""

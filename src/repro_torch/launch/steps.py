@@ -3,7 +3,9 @@
 Counterpart of ``repro.launch.steps``.  ``make_train_step`` takes
 gradients through ``accumulate_grads`` over ``ec.microbatches``
 microbatches (accumulated in ``ec.accum_dtype``), applies the optimizer's
-update and reports ``loss``, ``aux_loss`` and ``grad_norm``.
+update and reports ``loss``, ``aux_loss`` and ``grad_norm``; the gradient
+norm and the update are one device span, ``train.update``
+(``telemetry/device.py``).
 
 With ``rules=None`` a step is the one-device eager step.  With a
 :class:`~repro_torch.distributed.sharding.ShardingRules` it is the
@@ -38,6 +40,7 @@ from repro_torch.configs.base import ShapeConfig
 from repro_torch.models.layers import dt
 from repro_torch.models.model import Model
 from repro_torch.optim.grad_accum import accumulate_grads
+from repro_torch.telemetry.device import device_span
 
 
 def _sharded(rules):
@@ -126,10 +129,12 @@ def make_train_step(model: Model, optimizer, shape: ShapeConfig,
                 accum_dtype=accum_dtype)
             metrics = dict(metrics)
             metrics["loss"] = loss
-            metrics["grad_norm"] = torch.stack(
-                [torch.sum(torch.square(g.float())) for g in grads.values()]
-            ).sum().sqrt()
-            params, opt_state = optimizer.update(grads, opt_state, params)
+            with device_span("train.update", batch["tokens"].device):
+                metrics["grad_norm"] = torch.stack(
+                    [torch.sum(torch.square(g.float()))
+                     for g in grads.values()]).sum().sqrt()
+                params, opt_state = optimizer.update(grads, opt_state,
+                                                     params)
         if rules is not None:
             metrics = {k: _whole(v) for k, v in metrics.items()}
         return params, opt_state, metrics

@@ -31,6 +31,13 @@ Launch counts: the capture's launches, those of autograd's device thread
 :class:`~repro_torch.kernels.common.LaunchLog` open on every thread and
 added once per replay, so the counters read as after the eager step.
 
+Device spans: the step's own (``train.forward``, ``train.backward``,
+``train.flash_bwd``, ``train.update``) are recorded into the graph by a
+:class:`~repro_torch.telemetry.device.SpanRecorder` open over the capture
+(on every thread), and each armed replay re-times them: a call reads the
+previous armed replay's spans before it replays, and a scrape of the
+registry reads the last one's, after :meth:`GraphedTrainStep.close` too.
+
 A parameter's gradient accumulator keeps the stream it was made on, so
 nothing may hold a tensor that autograd ties to a parameter (a
 ``p.cpu()`` without ``detach()``) from the caller's stream across the
@@ -50,6 +57,7 @@ from torch import nn
 from repro_torch.kernels.common import LaunchLog, resolve_device
 from repro_torch.launch.step_graphs import CudaCapture, sync
 from repro_torch.telemetry import clock as tclock
+from repro_torch.telemetry.device import SpanRecorder
 
 
 def written(params: nn.Module, state) -> List[torch.Tensor]:
@@ -74,11 +82,13 @@ class GraphedTrainStep:
     """``step`` (see the module docstring) captured on ``device`` at its
     second call and replayed from then on.  ``capture`` records the graph
     (:class:`~repro_torch.launch.step_graphs.CudaCapture` by default; a
-    test hands in a stand-in with its ``on_stream`` and ``capture``).
+    test hands in a stand-in with its ``on_stream``, ``capture`` and
+    ``event``, the timing events of the step's spans).
 
     After the capture: ``launches``, the log of the kernels one replay
     launches; ``warmup_launches``, the eager warm-up's; ``capture_ms``,
     the host's time to capture (the allocator's cache emptied first);
+    ``spans``, the recorder of the device spans captured in the step;
     ``replays``, the replays so far."""
 
     def __init__(self, step: Callable, device="cuda", *,
@@ -94,6 +104,7 @@ class GraphedTrainStep:
         self.launches: Optional[LaunchLog] = None
         self.warmup_launches: Optional[LaunchLog] = None
         self.capture_ms: Optional[float] = None
+        self.spans: Optional[SpanRecorder] = None
         self.replays = 0
         self.closed = False
         self.params = self.state = self.batch = self.out = None
@@ -112,7 +123,10 @@ class GraphedTrainStep:
                              "it returned")
         else:
             self._load(batch)
+        self.spans.replaying()
+        t0 = tclock.now()
         self.graph.replay()
+        self.spans.replayed(t0, step=self.replays)
         self.launches.replay()
         self.replays += 1
         return self.params, self.state, _copied(self.out)
@@ -142,11 +156,12 @@ class GraphedTrainStep:
             gc.collect()
             torch.cuda.empty_cache()
         t0 = tclock.now()
-        with LaunchLog(capturing=True, all_threads=True) as log:
+        spans = SpanRecorder(self._capture.event)
+        with LaunchLog(capturing=True, all_threads=True) as log, spans:
             self.graph = self._capture.capture(self._body)
         sync(self.device)
         self.capture_ms = (tclock.now() - t0) * 1e3
-        self.launches = log
+        self.launches, self.spans = log, spans
 
     def _body(self) -> None:
         params, state, out = self.step(self.params, self.state, self.batch)
@@ -188,7 +203,8 @@ class GraphedTrainStep:
     def close(self) -> None:
         """Free the graph and so the memory of its pool.  The step is done
         with: a later call raises (PyTorch refuses a capture into a pool
-        whose graphs were all reset), and ``step`` stays the eager step."""
+        whose graphs were all reset), and ``step`` stays the eager step.
+        The last armed replay's spans stay for a scrape to read."""
         if self.graph is not None:
             self.graph.reset()
         self.graph = self.out = self.batch = None

@@ -6,6 +6,10 @@ which bounds activation memory for the big train cells (the microbatch
 count is an ``ExecConfig`` lever).  The reference's scan is a Python loop
 here, each microbatch's gradient added into the accumulator before the
 next one runs.
+
+Each microbatch's forward and backward are device spans (``train.forward``,
+``train.backward``; ``telemetry/device.py``): under remat the recompute
+falls in the backward.
 """
 from __future__ import annotations
 
@@ -14,13 +18,18 @@ from typing import Any, Callable, Dict
 import torch
 from torch import nn
 
+from repro_torch.telemetry.device import device_span
+
 
 def _grads(loss_fn: Callable, params: nn.Module, batch):
     """(loss, metrics, gradients in parameter order) of one batch; a
     parameter the loss does not reach gets zeros, as in JAX."""
     ps = list(params.parameters())
-    loss, metrics = loss_fn(params, batch)
-    gs = torch.autograd.grad(loss, ps, allow_unused=True)
+    device = ps[0].device
+    with device_span("train.forward", device):
+        loss, metrics = loss_fn(params, batch)
+    with device_span("train.backward", device):
+        gs = torch.autograd.grad(loss, ps, allow_unused=True)
     gs = [torch.zeros_like(p) if g is None else g for g, p in zip(gs, ps)]
     return loss.detach(), {k: v.detach() for k, v in metrics.items()}, gs
 

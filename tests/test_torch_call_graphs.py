@@ -4,7 +4,7 @@ there are no CUDA graphs and no pinned memory.
 
 A stand-in capture takes ``CudaCapture``'s place, one per slot: its
 capture runs the forward's Python once, as a capture does, each replay
-runs it again (or nothing), and its timing stamps read the host clock.
+runs it again (or nothing), and its timing events read the host clock.
 That holds what :class:`CallGraphs` does around the graphs (a slot per
 call, a capture per new prompt length and slot, launch accounting, one
 cancellation checkpoint per replay, freeing on close) against the eager
@@ -33,6 +33,7 @@ from repro_torch.kernels.common import LaunchCounter
 from repro_torch.launch import serve
 from repro_torch.launch.call_graphs import CallGraphs, param_bytes
 from repro_torch.models import build_model
+from torch_host_events import HostStamp
 
 REPO = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO / "examples"))
@@ -40,20 +41,6 @@ sys.path.insert(0, str(REPO))
 
 ARCHS = ["qwen1.5-0.5b", "mamba2-130m"]
 S = 16
-
-
-class HostStamp:
-    """A CUDA event's ``elapsed_time`` and ``synchronize`` on the host
-    clock."""
-
-    def __init__(self):
-        self.t = time.perf_counter()
-
-    def elapsed_time(self, end):
-        return (end.t - self.t) * 1e3
-
-    def synchronize(self):
-        pass
 
 
 class StandInGraph:
@@ -101,7 +88,7 @@ class StandInCapture:
         body()
         return StandInGraph(body, self)
 
-    def stamp(self):
+    def event(self):
         return HostStamp()
 
 

@@ -45,6 +45,7 @@ from repro_torch.models import layers
 from repro_torch.models.weights import (Bits, from_jax_params, init_params,
                                          jax_leaf, params_class,
                                          to_jax_params, trainable)
+from torch_host_events import HostStamp
 
 ARCH = "whisper-tiny"
 B, S, STEPS = 2, 12, 32
@@ -499,6 +500,9 @@ class _StandInCapture:
     def capture(self, body):
         body()
         return self.Graph(body)
+
+    def event(self):
+        return HostStamp()
 
 
 def test_step_graphs_take_the_frames_as_a_static_buffer():

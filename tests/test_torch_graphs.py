@@ -23,6 +23,7 @@ from repro_torch.kernels.common import LaunchCounter, LaunchLog
 from repro_torch.launch import serve, step_graphs
 from repro_torch.launch.step_graphs import ServeGraphs, eager_generate
 from repro_torch.models import build_model
+from torch_host_events import HostStamp
 
 ARCHS = ["qwen1.5-0.5b", "deepseek-moe-16b", "mamba2-130m", "zamba2-1.2b"]
 B, S, NEW = 2, 16, 5
@@ -60,6 +61,9 @@ class StandInCapture:
         body()
         return StandInGraph(body if self.run_on_replay else None, self.log,
                             next(self.names))
+
+    def event(self):
+        return HostStamp()
 
 
 def _served(arch, seed=0):

@@ -30,6 +30,7 @@ from repro_torch.launch.train_graphs import GraphedTrainStep, written
 from repro_torch.models import ExecConfig, build_model
 from repro_torch.models.weights import trainable
 from repro_torch.optim import SGD, AdamW, warmup_cosine
+from torch_host_events import HostStamp
 
 STEPS = 3
 
@@ -70,6 +71,9 @@ class StandInCapture:
                 t.copy_(k)
         self.captured.append(owner.params)
         return StandInGraph(body)
+
+    def event(self):
+        return HostStamp()
 
 
 def _batches(cfg, shape):

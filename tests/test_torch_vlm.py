@@ -43,6 +43,7 @@ from repro_torch.models.transformer import Transformer
 from repro_torch.models.weights import (Bits, from_jax_params, init_params,
                                          jax_leaf, params_class,
                                          to_jax_params, trainable)
+from torch_host_events import HostStamp
 
 ARCH = "internvl2-2b"
 B, S, STEPS = 2, 12, 32
@@ -404,6 +405,9 @@ class _StandInCapture:
     def capture(self, body):
         body()
         return self.Graph(body)
+
+    def event(self):
+        return HostStamp()
 
 
 def test_step_graphs_start_decoding_after_the_patches():
